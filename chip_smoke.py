@@ -1,31 +1,40 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (volcanosv_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--profile]
 
 Run from the root of a checkout; it needs one CUDA card, builds the CUDA
 kernels from `volcanosv_tpu_torch/csrc/` with nvcc, and writes its data
 under `build/chip_smoke/`.  It imports nothing of JAX or of the JAX package.
 
 Phase 1  each kernel against its plain PyTorch version on the card, at the
-         shapes the vc-large-indel path gives it: scores, end columns and
-         row-0 profiles (rows < qlen) bit-equal, packed walk streams
-         bit-equal, decoded CIGARs equal; times (median of CUDA-event-timed
-         runs after warm-up) and GCUPS = B*M*W / time.
+         shapes the vc-large-indel path gives it: scores, end columns,
+         row-0 profiles and traceback bytes (rows < qlen) bit-equal,
+         packed walk streams bit-equal, decoded CIGARs equal.  Where both
+         of banded_dp's designs take the band (W <= 512: a warp per
+         alignment, or a block per alignment) both are checked and timed,
+         in turns (block, warp, warp, block).  Times are medians of
+         CUDA-event-timed runs after warm-up (the plain versions: their
+         one checked call); each row gives the design the launcher picks,
+         GCUPS = B*M*W / time, the bound (`_dp_bound`, `_walk_bound`) and
+         the share of it.
 Phase 2  `vc-large-indel` through the port's CLI with `--device cuda` on a
          simulated 10 Mb chromosome (80 DEL + 80 INS of 50-2000 bp,
          120 kb phase-block contigs, HiFi reads at 10x); both kernels must
          have launched in that run, and the port's `eval` must give recall
-         and precision >= 0.85 against the implanted truth.  A user's unit
-         is a whole chromosome (50-250 Mb); 10 Mb only fits the run's time
-         limit.
+         and precision >= 0.85 against the implanted truth.  The (mode, B,
+         M, W) of every banded_dp launch is listed.  A user's unit is a
+         whole chromosome (50-250 Mb); 10 Mb only fits the run's time
+         limit.  With --profile the run is traced with torch.profiler and
+         the device time by kernel is printed.
 Phase 3  the same CLI on a 200 kb case with `--device cuda` and with
          `--device cpu` (the plain versions): the two VCFs must be
          byte-identical.
 
-Any failure raises.  On success the last three lines of standard output are
-the card's `nvidia-smi` name and power limit, one JSON object with the
-kernels' launches, errors and times, and the `{"ok": true, ...}` line.
+Any failure raises.  On success the last four lines of standard output are
+phase 2's summary (launches by shape, stage times, eval), the card's
+`nvidia-smi` name and power limit, one JSON object with the kernels'
+launches, errors, times and bounds, and the `{"ok": true, ...}` line.
 """
 from __future__ import annotations
 
@@ -41,6 +50,29 @@ from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
+
+# Published peaks of one H100 SXM at its 700 W limit: HBM3 at 3.35 TB/s;
+# int32 at 132 SMs x 64 int32 lanes x 1.98 GHz (the boost clock).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+
+# int32 operations of one DP cell, counted from the recurrence of
+# ops/banded_align.py::banded_dp_plain; an add, max, compare or select
+# counts one.  Affine, score only (13): the match compare and the
+# substitution select; E = max(H_up + go + ge, E_up + ge) (3); Htmp =
+# max(H_diag + sub, E) (2); F: Htmp - ge*l, the running prefix max, + ge*l
+# + go (3); H = max(Htmp, F) (1); the band masks of H and E (2).  A
+# traceback adds the E-open, up, F-open (an add and a compare) and left
+# tests and two to merge them into the byte (7).  Dual-affine adds E2, its
+# prefix F2 and their maxes and mask (9), and with a traceback their four
+# tests and one merge (7).  Edit distance is affine with unit costs.
+DP_OPS_PER_CELL = {(False, False): 13, (False, True): 20,
+                   (True, False): 22, (True, True): 36}
+# int32 operations of one walk step, counted from tb_walk_plain: the lane,
+# band test and cell address (8), the cell's choice and open bit (3), the
+# state transition (8), the two moves and the done test (4), the op code
+# and its packing (2).
+WALK_OPS_PER_STEP = 25
 
 
 def _log(msg: str) -> None:
@@ -62,6 +94,42 @@ def _time_ms(fn, warmup: int, runs: int) -> float:
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def _bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the int32 operations over the int32 rate."""
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    o_ms = n_ops / INT32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(b_ms, o_ms),
+                bound_by="bytes" if b_ms >= o_ms else "operations",
+                bytes=int(n_bytes), ops=int(n_ops))
+
+
+def _dp_bound(qlen, tlen, M: int, W: int, B: int, dual: bool, tb: bool,
+              row0: bool) -> dict:
+    """Bound of one banded_dp call on these inputs: the cells of rows <
+    qlen; each query and target byte read once, the lengths, the outputs
+    (score, end column, the traceback of rows < qlen, the row-0 profile)
+    written once."""
+    import numpy as np
+    rows = np.minimum(np.maximum(np.asarray(qlen, np.int64), 0), M)
+    cells = int(rows.sum()) * W
+    n_bytes = rows.sum() + np.asarray(tlen, np.int64).sum() + 16 * B \
+        + (cells if tb else 0) + (4 * M * B if row0 else 0)
+    return _bound(n_bytes, cells * DP_OPS_PER_CELL[(dual, tb)])
+
+
+def _walk_bound(ops, n_steps: int, B: int) -> dict:
+    """Bound of one tb_walk call: the steps each walk takes before it is
+    done (the last step that emits an op), one traceback byte read per
+    step, the lengths read, the packed stream and done flags written."""
+    import numpy as np
+    moved = ops != 3                                     # (n_steps, B)
+    steps = np.where(moved.any(0),
+                     n_steps - np.argmax(moved[::-1], 0), 0).sum()
+    n_bytes = steps + 8 * B + n_steps // 4 * B + B
+    return _bound(n_bytes, steps * WALK_OPS_PER_STEP)
 
 
 def _pairs(rng, B: int, M: int, W: int, d_lo: int):
@@ -105,66 +173,102 @@ def phase1_kernels(seed: int):
                          c.gap_open2, c.gap_extend2)
 
     asm5, asm20 = scores_of("asm5"), scores_of("asm20")
+    row0 = dict(with_traceback=False, row0_scores=True)
+    score_only = dict(with_traceback=False)
     cases = [  # mode, B, M, W, d_lo, scores, DP flags
         ("traceback", 4096, 256, 256, -128, asm5, {}),
         ("traceback", 256, 8192, 256, -128, asm5, {}),
-        ("row0", 1024, 1024, 128, -64, asm5,
-         dict(with_traceback=False, row0_scores=True)),
-        ("edit", 1024, 4096, 4096, -2048, ba.Scores.edit(),
-         dict(with_traceback=False)),
+        ("row0", 1024, 1024, 128, -64, asm5, row0),
+        ("edit", 1024, 4096, 4096, -2048, ba.Scores.edit(), score_only),
         ("dual-affine traceback", 1024, 1024, 256, -128, asm20, {}),
         ("free_t_end", 256, 512, 128, -64, asm5,
          dict(with_traceback=False, free_t_end=True)),
+        # the main path's small batches, a batch that is not a multiple of
+        # the warps per block, and the widest band of the warp design
+        ("traceback", 64, 256, 256, -128, asm5, {}),
+        ("traceback", 64, 1024, 256, -128, asm5, {}),
+        ("traceback", 64, 8192, 256, -128, asm5, {}),
+        ("row0", 64, 1024, 128, -64, asm5, row0),
+        ("traceback", 1001, 512, 256, -128, asm5, {}),
+        ("edit", 1024, 512, 512, -256, ba.Scores.edit(), score_only),
+        ("dual-affine traceback", 256, 512, 512, -256, asm20, {}),
     ]
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
     dp_rows, walk_rows = [], []
+
+    def timed_once(fn):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        return out, s.elapsed_time(e)
+
     for mode, B, M, W, d_lo, sc, kw in cases:
         q, t, ql, tl = _pairs(rng, B, M, W, d_lo)
         args = [torch.from_numpy(x).to(dev) for x in (q, t, ql, tl)]
-        kern = ba.banded_dp(*args, W, d_lo, sc, **kw)
-        plain = ba.banded_dp_plain(*args, W, d_lo, sc, **kw)
-        torch.cuda.synchronize()
-        err = max(int((kern[0] - plain[0]).abs().max()),
-                  int((kern[1] - plain[1]).abs().max()))
-        if kern[3] is not None:
-            valid = torch.arange(M, device=dev)[:, None] < args[2][None, :]
-            err = max(err, int(((kern[3] - plain[3]).abs() * valid).max()))
-        if err:
-            raise AssertionError(f"banded_dp {mode}: kernel != plain "
-                                 f"(max abs err {err})")
-        ms = _time_ms(lambda: ba.banded_dp(*args, W, d_lo, sc, **kw), 2, 5)
-        plain_ms = _time_ms(
-            lambda: ba.banded_dp_plain(*args, W, d_lo, sc, **kw), 1, 3)
-        row = dict(mode=mode, B=B, M=M, W=W, d_lo=d_lo, max_abs_err=err,
-                   ms=ms, plain_ms=plain_ms, gcups=B * M * W / ms / 1e6,
-                   plain_gcups=B * M * W / plain_ms / 1e6)
+        plain, plain_ms = timed_once(
+            lambda: ba.banded_dp_plain(*args, W, d_lo, sc, **kw))
+        rows = torch.arange(M, device=dev)[None, :] < args[2][:, None]
+        branches = ["block", "warp"] if W <= 512 else ["block"]
+        err = 0
+        for br in branches + ["auto"]:
+            kern = ba.banded_dp(*args, W, d_lo, sc, **kw, branch=br)
+            torch.cuda.synchronize()
+            err = max(err, int((kern[0] - plain[0]).abs().max()),
+                      int((kern[1] - plain[1]).abs().max()))
+            if kern[3] is not None:
+                err = max(err, int((kern[3] - plain[3]).T[rows].abs().max()))
+            if kern[2] is not None:
+                err = max(err, int((kern[2][rows].int()
+                                    - plain[2][rows].int()).abs().max()))
+            if err:
+                raise AssertionError(f"banded_dp {mode} B={B} M={M} W={W} "
+                                     f"{br}: kernel != plain (max abs err "
+                                     f"{err})")
+        times = {br: [] for br in branches}
+        for br in branches + branches[::-1]:
+            times[br].append(_time_ms(lambda: ba.banded_dp(
+                *args, W, d_lo, sc, **kw, branch=br), 2, 5))
+        taken = ba.banded_dp_branch(W)
+        ms = statistics.mean(times[taken])
+        bound = _dp_bound(ql, tl, M, W, B, sc.dual,
+                          kw.get("with_traceback", True),
+                          kw.get("row0_scores", False))
+        row = dict(mode=mode, B=B, M=M, W=W, d_lo=d_lo, branch=taken,
+                   max_abs_err=err, ms=ms,
+                   ms_by_branch={br: statistics.mean(v)
+                                 for br, v in times.items()},
+                   plain_ms=plain_ms, gcups=B * M * W / ms / 1e6,
+                   share_of_bound=bound["bound_ms"] / ms, **bound)
         dp_rows.append(row)
         _log(f"banded_dp {json.dumps(row)}")
         if kern[2] is None:
             continue
         n_steps, _full = ba.walk_steps(M, W, ql, tl)
         pk, dk = ba.tb_walk(kern[2], args[2], args[3], d_lo, n_steps)
-        pp, dp = ba.tb_walk_plain(kern[2], args[2], args[3], d_lo, n_steps)
-        torch.cuda.synchronize()
-        werr = int(np.abs(ba._unpack_ops(pk.cpu().numpy()).astype(np.int16)
+        (pp, dp), wplain = timed_once(lambda: ba.tb_walk_plain(
+            kern[2], args[2], args[3], d_lo, n_steps))
+        ops_k = ba._unpack_ops(pk.cpu().numpy())
+        werr = int(np.abs(ops_k.astype(np.int16)
                           - ba._unpack_ops(pp.cpu().numpy())).max())
         if werr or not torch.equal(dk, dp) or not bool(dk.all()):
             raise AssertionError(f"tb_walk {mode}: kernel != plain or "
                                  "unfinished walks")
         # end to end: kernel DP + kernel walk vs plain DP + plain walk
         pp2, _ = ba.tb_walk_plain(plain[2], args[2], args[3], d_lo, n_steps)
-        cig_k = ba._rle_columns(ba._unpack_ops(pk.cpu().numpy()), B)
+        cig_k = ba._rle_columns(ops_k, B)
         cig_p = ba._rle_columns(ba._unpack_ops(pp2.cpu().numpy()), B)
         if cig_k != cig_p:
             raise AssertionError(f"{mode}: CIGARs differ between kernels "
                                  "and plain versions")
         wms = _time_ms(
             lambda: ba.tb_walk(kern[2], args[2], args[3], d_lo, n_steps), 2, 5)
-        wplain = _time_ms(lambda: ba.tb_walk_plain(
-            kern[2], args[2], args[3], d_lo, n_steps), 1, 2)
+        wbound = _walk_bound(ops_k, n_steps, B)
         wrow = dict(mode=mode, B=B, M=M, W=W, n_steps=n_steps,
-                    max_abs_err=werr, ms=wms, plain_ms=wplain)
+                    max_abs_err=werr, ms=wms, plain_ms=wplain,
+                    share_of_bound=wbound["bound_ms"] / wms, **wbound)
         walk_rows.append(wrow)
         _log(f"tb_walk {json.dumps(wrow)}")
         del kern, plain
@@ -210,7 +314,30 @@ def _vc_args(d: str, out: str, device: str) -> list[str]:
             "-o", out, "--device", device]
 
 
-def phase2_slice(seed: int):
+def _profile_summary(prof, wall_s: float) -> dict:
+    """Device time by kernel name (ms) from a torch.profiler trace, the
+    summed device time and its share of the wall time."""
+    by_name = {}
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        by_name[e.key] = (by_name.get(e.key, (0.0, 0))[0] + us / 1e3,
+                          by_name.get(e.key, (0.0, 0))[1] + e.count)
+    busy = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return dict(busy_ms=busy, wall_s=wall_s,
+                busy_share=busy / (wall_s * 1e3),
+                kernels=[dict(name=k[:120], ms=v[0], count=v[1])
+                         for k, v in top])
+
+
+def phase2_slice(seed: int, profile: bool):
+    import contextlib
+    from collections import Counter
+
     import torch
 
     from volcanosv_tpu_torch import cli
@@ -225,20 +352,33 @@ def phase2_slice(seed: int):
          f"in {sim_s:.1f} s")
     out = os.path.join(d, "out")
     STAGE_TIMES.clear()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profile \
+        else contextlib.nullcontext()
     ba.reset_launch_counts()
     t0 = time.perf_counter()
-    rc = cli.main(_vc_args(d, out, "cuda"))
-    torch.cuda.synchronize()
+    with prof:
+        rc = cli.main(_vc_args(d, out, "cuda"))
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"banded_dp": ba.banded_dp.launches,
                 "tb_walk": ba.tb_walk.launches}
+    dp_shapes = [dict(mode=m, B=B, M=M, W=W,
+                      branch=ba.banded_dp_branch(W), count=n)
+                 for (m, B, M, W), n in Counter(ba.banded_dp.shapes).items()]
     if rc != 0:
         raise AssertionError(f"vc-large-indel exited {rc}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
     _log(f"phase 2: vc-large-indel {wall:.1f} s, launches {launches}\n"
+         f"phase 2: banded_dp launches by shape {json.dumps(dp_shapes)}\n"
          + stage_report())
+    profile_info = None
+    if profile:
+        profile_info = _profile_summary(prof, wall)
+        _log(f"phase 2: profile {json.dumps(profile_info)}")
     res = evaluate_files(os.path.join(d, "truth.vcf"),
                          os.path.join(out, "volcanosv_large_indel.vcf"),
                          EvalParams(), device=torch.device("cuda"))
@@ -248,7 +388,8 @@ def phase2_slice(seed: int):
         raise AssertionError(f"accuracy gate failed: {summary}")
     stages = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
     return launches, dict(wall_s=wall, sim_s=sim_s, eval=summary,
-                          stages=stages)
+                          stages=stages, launches=launches,
+                          banded_dp_shapes=dp_shapes, profile=profile_info)
 
 
 def phase3_cuda_vs_cpu(seed: int) -> None:
@@ -272,6 +413,9 @@ def phase3_cuda_vs_cpu(seed: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", action="store_true",
+                    help="trace phase 2 with torch.profiler and print the "
+                         "device time by kernel")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -298,24 +442,28 @@ def main() -> int:
          f"({cuda_build.build_dir()}) on {smi}")
 
     dp_rows, walk_rows = phase1_kernels(args.seed)
-    launches, slice_info = phase2_slice(args.seed)
+    launches, slice_info = phase2_slice(args.seed, args.profile)
     phase3_cuda_vs_cpu(args.seed)
 
     head_dp, head_walk = dp_rows[0], walk_rows[0]   # traceback, B=4096, M=256
+    # no single PyTorch call computes either function: library_ms is null
     kernels = [
         dict(name="banded_dp", route="cuda",
              source="volcanosv_tpu_torch/csrc/banded_dp.cu",
              replaces="volcanosv_tpu/ops/pallas/banded_dp.py:46",
              launches=launches["banded_dp"],
              max_abs_err=max(r["max_abs_err"] for r in dp_rows),
-             ms=head_dp["ms"], plain_ms=head_dp["plain_ms"], shapes=dp_rows),
+             ms=head_dp["ms"], plain_ms=head_dp["plain_ms"],
+             bound_ms=head_dp["bound_ms"], bound_by=head_dp["bound_by"],
+             library_ms=None, shapes=dp_rows),
         dict(name="tb_walk", route="cuda",
              source="volcanosv_tpu_torch/csrc/tb_walk.cu",
              replaces="volcanosv_tpu/ops/banded_align.py:291",
              launches=launches["tb_walk"],
              max_abs_err=max(r["max_abs_err"] for r in walk_rows),
              ms=head_walk["ms"], plain_ms=head_walk["plain_ms"],
-             shapes=walk_rows),
+             bound_ms=head_walk["bound_ms"], bound_by=head_walk["bound_by"],
+             library_ms=None, shapes=walk_rows),
     ]
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"slice": slice_info}))

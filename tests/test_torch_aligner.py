@@ -60,7 +60,8 @@ def test_inversion_rescue_output_matches(case):
     cfg = from_reference_dict(dataclasses.asdict(rcfg))
     aligner = Aligner(ref, cfg, device="cpu")
     full = aligner.align(list(contigs.items()))
-    plain = Aligner(ref, dataclasses.replace(cfg, inv_rescue=False)).align(
+    plain = Aligner(ref, dataclasses.replace(cfg, inv_rescue=False),
+                    device="cpu").align(
         list(contigs.items()))
     rescued = full[len(plain):]
     assert rescued and all(a.is_supplementary for a in rescued)

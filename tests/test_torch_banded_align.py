@@ -64,7 +64,8 @@ def test_plain_dp_matches_scan_and_pallas(mode):
                                           np.asarray(r0_ref)[:qlen[b], b])
     if tb is not None and mode != "free_t_start":
         got = port.banded_align_cigars(q, t, qlen, tlen, W=W, d_lo=d_lo,
-                                       scores=port.Scores(**sc))
+                                       scores=port.Scores(**sc),
+                                       device="cpu")
         assert got == _host_cigars(np.asarray(tb_ref), qlen, tlen, d_lo)
     if tb is not None:
         # on inputs padded with code 4 the traceback bytes agree too, and
@@ -100,7 +101,8 @@ def test_plain_dp_matches_scan_and_pallas(mode):
         want = [ref.traceback_cigar(tb_pl[:, :, b], int(qlen[b]),
                                     int(tlen[b]), d_lo) for b in range(B)]
         assert port.banded_align_cigars(
-            q, t, qlen, tlen, W=W, d_lo=d_lo, scores=port.Scores(**sc)) == want
+            q, t, qlen, tlen, W=W, d_lo=d_lo, scores=port.Scores(**sc),
+            device="cpu") == want
 
 
 def test_free_t_end_tie_follows_scan():
@@ -197,7 +199,7 @@ def test_gap_dense_walk_takes_full_bound():
         np.testing.assert_array_equal(done.numpy(), np.asarray(want_done))
         assert bool(done.all()) is finished
     cigs = port.banded_align_cigars(q, t, qlen, tlen, W=W, d_lo=d_lo,
-                                    scores=port.Scores(**GAPPY))
+                                    scores=port.Scores(**GAPPY), device="cpu")
     assert cigs == _host_cigars(tb, qlen, tlen, d_lo)
 
 
@@ -208,20 +210,22 @@ def test_dispatchers_match_reference_on_cpu():
     q, t, qlen, tlen = _case(rng, B, M, W, d_lo)
     q, t, qlen, tlen, _ = port.pad_batch_pow2(q, t, qlen, tlen)
     np.testing.assert_array_equal(
-        port.banded_row0_auto(q, t, qlen, tlen, W=W, d_lo=d_lo)[:, :B]
+        port.banded_row0_auto(q, t, qlen, tlen, W=W, d_lo=d_lo,
+                              device="cpu")[:, :B]
         * (np.arange(M)[:, None] < qlen[None, :B]),
         np.asarray(ref.banded_row0_auto(q, t, qlen, tlen, W=W, d_lo=d_lo))
         [:, :B] * (np.arange(M)[:, None] < qlen[None, :B]))
     np.testing.assert_array_equal(
-        port.edit_distance_batch_auto(q, t, qlen, tlen, W=W),
+        port.edit_distance_batch_auto(q, t, qlen, tlen, W=W, device="cpu"),
         np.asarray(ref.edit_distance_batch_auto(q, t, qlen, tlen, W=W)))
 
 
 def test_cpu_path_counts_no_launches():
     port.reset_launch_counts()
     q, t, qlen, tlen = _case(np.random.default_rng(1), 2, 64, 64, -32)
-    port.banded_align_cigars(q, t, qlen, tlen, W=64, d_lo=-32)
+    port.banded_align_cigars(q, t, qlen, tlen, W=64, d_lo=-32, device="cpu")
     assert port.banded_dp.launches == 0 and port.tb_walk.launches == 0
+    assert port.banded_dp.shapes == []
 
 
 def test_wrappers_refuse_other_devices():

@@ -5,8 +5,10 @@ without them:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Band widths cover the path's range (64 … 4096), every DP mode, and the
-walk; integer outputs must be bit-equal (tolerance 0)."""
+Band widths cover the path's range (32 … 4096), every DP mode, both of the
+kernel's designs where both take the band (W <= 512: a warp per alignment,
+or a block), batches of 1 to 517 alignments, and the walk; integer outputs
+and the traceback bytes of rows < qlen must be bit-equal (tolerance 0)."""
 import numpy as np
 import pytest
 import torch
@@ -20,6 +22,7 @@ MODES = {
     "dual_affine": ({}, DUAL),
     "row0": (dict(with_traceback=False, row0_scores=True), ba.Scores()),
     "edit": (dict(with_traceback=False), ba.Scores.edit()),
+    "edit_traceback": ({}, ba.Scores.edit()),
     "free_t_end": (dict(free_t_end=True), ba.Scores()),
     "free_t_start": (dict(free_t_start=True), ba.Scores()),
 }
@@ -55,30 +58,67 @@ def _pairs(rng, B, M, W, d_lo):
     return q, t, qlen, tlen
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("W", [64, 128, 256, 512, 1024, 2048, 4096])
-@pytest.mark.parametrize("mode", list(MODES))
-def test_banded_dp_kernel_matches_plain(cuda, W, mode):
+def _check_against_plain(cuda, args, M, W, d_lo, mode):
+    """Every design that takes W against the plain version: scores, end
+    columns, row0 and traceback bytes of rows < qlen; then the walk over
+    the kernel's traceback against the plain walk over the plain one."""
     kw, sc = MODES[mode]
-    d_lo, M, B = -(W // 2), 192, 40
-    q, t, qlen, tlen = _pairs(np.random.default_rng(W), B, M, W, d_lo)
-    args = [torch.from_numpy(x).to(cuda) for x in (q, t, qlen, tlen)]
-    ba.reset_launch_counts()
-    k = ba.banded_dp(*args, W, d_lo, sc, **kw)
     p = ba.banded_dp_plain(*args, W, d_lo, sc, **kw)
-    torch.cuda.synchronize()
-    assert ba.banded_dp.launches == 1
-    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
-    if k[3] is not None:
-        rows = torch.arange(M, device=cuda)[:, None] < args[2][None, :]
-        assert torch.equal(k[3][rows], p[3][rows])
-    if k[2] is not None and mode != "free_t_start":
+    rows = torch.arange(M, device=cuda)[None, :] < args[2][:, None]   # (B, M)
+    branches = ["auto", "warp", "block"] if W <= 512 else ["auto", "block"]
+    ba.reset_launch_counts()
+    for br in branches:
+        k = ba.banded_dp(*args, W, d_lo, sc, **kw, branch=br)
+        torch.cuda.synchronize()
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]), br
+        if k[3] is not None:
+            assert torch.equal(k[3][rows.T], p[3][rows.T]), br
+        if k[2] is not None:
+            assert torch.equal(k[2][rows], p[2][rows]), br
+        if br == "auto":
+            auto = k
+    assert ba.banded_dp.launches == len(branches) == len(ba.banded_dp.shapes)
+    assert ba.banded_dp.shapes[0] == (
+        ba.dp_mode(sc, **kw), args[0].shape[0], M, W)
+    if auto[2] is not None and mode != "free_t_start":
+        qlen, tlen = args[2].cpu().numpy(), args[3].cpu().numpy()
         n_steps, full = ba.walk_steps(M, W, qlen, tlen)
         for steps in (n_steps, full):
-            pk, dk = ba.tb_walk(k[2], args[2], args[3], d_lo, steps)
+            pk, dk = ba.tb_walk(auto[2], args[2], args[3], d_lo, steps)
             pp, dp = ba.tb_walk_plain(p[2], args[2], args[3], d_lo, steps)
             assert torch.equal(pk, pp) and torch.equal(dk, dp)
         assert bool(dk.all()) and ba.tb_walk.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 37, 64])
+@pytest.mark.parametrize("W", [32, 64, 128, 256, 512, 1024, 2048, 4096])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_banded_dp_kernel_matches_plain(cuda, W, mode, B):
+    d_lo, M = -(W // 2), 192
+    q, t, qlen, tlen = _pairs(np.random.default_rng(W + B), B, M, W, d_lo)
+    args = [torch.from_numpy(x).to(cuda) for x in (q, t, qlen, tlen)]
+    _check_against_plain(cuda, args, M, W, d_lo, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [32, 128, 512, 1024])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_banded_dp_edges_match_plain(cuda, W, mode):
+    """qlen 0, 1 and M; tlen at both edges of the band (the global end on
+    lane 0 and on lane W-1) and inside it; B = 517 is not a multiple of
+    the warps per block."""
+    d_lo, M, B = -(W // 2), 96, 517
+    rng = np.random.default_rng(W)
+    q, t, qlen, tlen = _pairs(rng, B, M, W, d_lo)
+    t[t == 4] = rng.integers(0, 4, int((t == 4).sum())).astype(np.int8)
+    for b in range(B):
+        ql = (0, 1, M, int(qlen[b]))[b % 4]
+        lo, hi = max(0, ql + d_lo), ql + d_lo + W - 1
+        qlen[b] = ql
+        tlen[b] = (lo, hi, (lo + hi) // 2)[(b // 4) % 3]
+    args = [torch.from_numpy(x).to(cuda) for x in (q, t, qlen, tlen)]
+    _check_against_plain(cuda, args, M, W, d_lo, mode)
 
 
 @pytest.mark.cuda
@@ -109,6 +149,8 @@ def test_wrappers_reject_bad_inputs(cuda):
         ba.banded_dp(q, q, ln, ln, 96, -48, ba.Scores())       # W not 2^k
     with pytest.raises(ValueError):
         ba.banded_dp(q, q, ln.long(), ln, 64, -32, ba.Scores())
+    with pytest.raises(ValueError):                          # warp: W <= 512
+        ba.banded_dp(q, q, ln, ln, 1024, -512, ba.Scores(), branch="warp")
     with pytest.raises(ValueError):
         ba.tb_walk(torch.zeros((2, 8, 64), dtype=torch.uint8, device=cuda),
                    ln, ln, -32, 6)                               # not 4k steps

@@ -1,7 +1,8 @@
 """Host-side pieces of the port against the JAX package: configs carried
 across with from_reference_dict, the simulator (byte-identical from one
 seed), the file formats, the native C++ helpers, the import isolation of
-the port package, and `--device cuda` refusing a host without CUDA."""
+the port package, and `--device cuda` (the default of every entry point)
+refusing a host without CUDA."""
 import dataclasses
 import os
 import subprocess
@@ -222,6 +223,63 @@ def test_port_modules_import_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _dp_batch():
+    q = np.zeros((64, 32), np.int8)
+    return q, np.zeros((64, 96), np.int8), np.ones(64, np.int32), \
+        np.ones(64, np.int32)
+
+
+def _entry_point_calls(tmp_path):
+    """Public entry point → a call of it on small valid inputs that leaves
+    `device` at its default."""
+    from volcanosv_tpu_torch import aligner, eval as port_eval
+    from volcanosv_tpu_torch.ops import banded_align as ba
+    from volcanosv_tpu_torch.vc import large_indel, redundancy
+    pcfg = config.PipelineConfig.for_dtype("Hifi")
+    pairs = [("ACGTACGT", "ACGTTCGT")]
+    one = np.ones(1, np.int64)
+    return {
+        "Aligner": lambda: aligner.Aligner(
+            {"chr1": "ACGT" * 200}, config.AlignConfig.preset("asm5")),
+        "banded_align_cigars_dispatch":
+            lambda: ba.banded_align_cigars_dispatch(*_dp_batch()),
+        "banded_align_cigars": lambda: ba.banded_align_cigars(*_dp_batch()),
+        "banded_row0_auto": lambda: ba.banded_row0_auto(*_dp_batch()),
+        "edit_distance_batch_auto":
+            lambda: ba.edit_distance_batch_auto(*_dp_batch()),
+        "edit_distance_pairs": lambda: redundancy.edit_distance_pairs(pairs),
+        "edit_sim_batch": lambda: redundancy.edit_sim_batch(pairs),
+        "find_redundant": lambda: redundancy.find_redundant(
+            one, one * 50, np.zeros(1, bool), ["A" * 50], pcfg.redundancy),
+        "remove_redundancy_records":
+            lambda: large_indel.remove_redundancy_records([], pcfg),
+        "call_chromosome_raw": lambda: large_indel.call_chromosome_raw(
+            "chr1", [], "ACGT" * 50, {}, pcfg),
+        "call_chromosome": lambda: large_indel.call_chromosome(
+            "chr1", [], "ACGT" * 50, {}, pcfg),
+        "evaluate": lambda: port_eval.evaluate([], []),
+        "evaluate_files": lambda: port_eval.evaluate_files(
+            str(tmp_path / "absent_base.vcf"),
+            str(tmp_path / "absent_comp.vcf")),
+    }
+
+
+@pytest.mark.parametrize("entry", [
+    "Aligner", "banded_align_cigars_dispatch", "banded_align_cigars",
+    "banded_row0_auto", "edit_distance_batch_auto", "edit_distance_pairs",
+    "edit_sim_batch", "find_redundant", "remove_redundancy_records",
+    "call_chromosome_raw", "call_chromosome", "evaluate", "evaluate_files"])
+def test_entry_points_default_to_cuda(tmp_path, entry):
+    """Every public entry point runs on the card unless asked for the CPU:
+    without `device` on a host with no CUDA it raises before any work (the
+    absent VCFs of evaluate_files are never opened)."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present on this host")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _entry_point_calls(tmp_path)[entry]()
 
 
 def test_device_cuda_raises_without_cuda(tmp_path):

@@ -115,8 +115,9 @@ def test_edit_distance_batches_match():
     pairs.append(("ACGT" * 50, "TTTT" * 30))
     for clip in (None, 40):
         np.testing.assert_array_equal(
-            port_red.edit_distance_pairs(pairs, clip_to=clip),
+            port_red.edit_distance_pairs(pairs, clip_to=clip, device="cpu"),
             ref_red.edit_distance_pairs(pairs, clip_to=clip))
-    np.testing.assert_array_equal(port_red.edit_sim_batch(pairs),
+    np.testing.assert_array_equal(port_red.edit_sim_batch(pairs,
+                                                          device="cpu"),
                                   ref_red.edit_sim_batch(pairs))
 

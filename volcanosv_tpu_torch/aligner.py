@@ -28,6 +28,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from .config import AlignConfig
+from .device import DEFAULT_DEVICE, resolve_device
 from .ops.banded_align import (Scores, banded_align_cigars,
                                banded_align_cigars_dispatch, banded_row0_auto,
                                pad_batch_pow2)
@@ -185,8 +186,8 @@ class _RefinePipeline:
     as in the reference, so batches are composed identically.  Buckets
     floor at 256."""
 
-    def __init__(self, scores: Scores, flush_at: int = 4096,
-                 max_inflight: int = 2, device="cpu"):
+    def __init__(self, scores: Scores, device, flush_at: int = 4096,
+                 max_inflight: int = 2):
         self.scores = scores
         self.device = device
         self.flush_at = flush_at
@@ -252,7 +253,7 @@ class _RefinePipeline:
         self.pending = []
 
 
-def _run_split(ws: list[_Window], device="cpu"):
+def _run_split(ws: list[_Window], device):
     """Two diagonal-0 score profiles per window → breakpoint placement."""
     from .ops.pack import pad_codes
     groups: dict[int, list[_Window]] = {}
@@ -351,12 +352,12 @@ def _merge_cigar(parts: list[tuple[int, int]]) -> list[tuple[int, int]]:
 
 class Aligner:
     """Reusable aligner over one reference (index built once).  `device` is
-    the torch device the DP batches run on."""
+    the torch device the DP batches run on (default: the card)."""
 
     def __init__(self, ref_seqs: dict[str, str], cfg: AlignConfig,
-                 device="cpu"):
+                 device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
         self.cfg = cfg
-        self.device = device
         # per-preset DP scores, incl. the dual-affine long-gap class when
         # the preset sets it (asm20/dipcall: minimap2 -O 5,56 -E 4,1,
         # volcanosv-vc-small-indel.py:85-95)
@@ -429,7 +430,7 @@ class Aligner:
         plans = []   # (qname, qlen, chain, skeleton, first_aq, first_at, qc)
         # refine windows stream straight into the device pipeline (full
         # buckets dispatch while later queries are still seeding/chaining)
-        pipe = _RefinePipeline(self.scores, device=self.device)
+        pipe = _RefinePipeline(self.scores, self.device)
         with stage_timer("seed_chain", log):
             for qname, qc_fwd, chains in self._seed_chain_stream(
                     queries, max_chains_per_query):

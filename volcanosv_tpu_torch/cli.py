@@ -23,22 +23,10 @@ import sys
 import numpy as np
 
 from .config import PipelineConfig
+from .device import resolve_device
 from .utils.logging import get_logger, stage_timer
 
 log = get_logger("cli")
-
-
-def resolve_device(name: str):
-    """`--device` value → torch.device; raises when CUDA is asked for and
-    absent (there is no silent CPU fallback)."""
-    import torch
-    dev = torch.device(name)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"--device {name}: CUDA is not available")
-    elif dev.type != "cpu":
-        raise ValueError(f"--device {name}: only cuda and cpu are supported")
-    return dev
 
 
 # ---------------------------------------------------------------------------

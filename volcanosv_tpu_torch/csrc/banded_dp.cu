@@ -17,19 +17,41 @@
 // kernel's int16-range NEG16 = -20000 would collide with real scores of
 // edit distance at L = 16384 or of affine scoring over 8192-row windows.
 //
-// What bounds it on the card: the row recurrence is sequential, so a block
-// walks the M rows of one alignment and each row costs two block barriers
-// plus one cross-lane max-scan; the traceback stream (B*M*W bytes) is the
-// only large memory traffic.  Design: one thread block per alignment (the
-// loop over rows replaces the TPU's sequential grid axis), min(W, 1024)
-// threads each owning W/blockDim contiguous lanes in registers.  The
-// previous row's H, E and E2 live in shared memory (one buffer: every read
-// of row i happens before the first barrier, every write after it), sized
-// dynamically so W = 4096 fits.  The F prefix is a warp-shuffle scan plus
-// a pass over the per-warp totals.  Rows at or past qlen are skipped (the
-// walk never reads them; their row0 entries are set to NEG).  The
-// traceback is written by neighbouring threads to neighbouring bytes.
-// Reads of the target before column 0 or at/after tlen see code 4 (pad).
+// What bounds it on the card: integer operations.  A cell costs 13 (affine,
+// score only) to 36 (dual-affine with traceback) int32 adds, maxes,
+// compares and selects (chip_smoke.py, DP_OPS_PER_CELL), against one
+// traceback byte written; at 132 SMs x 64 int32 lanes the operations
+// outweigh the bytes four- to sevenfold.  The row
+// recurrence is sequential, so each alignment walks its M rows in order and
+// the latency of one row (the lane-crossing F prefix above all) has to be
+// hidden behind other alignments.  Two designs, picked by the launcher:
+//
+// W <= 512 (banded_dp_warp_kernel): one warp per alignment, 1 or 4 warps a
+//   block (4 once B >= 512, so that small batches still spread over the
+//   SMs), each thread owning L = W/32 contiguous lanes of H, E, E2 and the
+//   target codes in registers.  Lane l+1 of the previous row is the
+//   thread's own register k+1, or for its last lane the next thread's
+//   first (__shfl_down_sync; NEG past lane W-1); the diagonal is its own
+//   register.  The target window moves one lane per row as four codes to a
+//   register (a funnel shift, one entering byte per row); the query code of
+//   a row is one broadcast from 32 rows loaded at a time.  F is a serial
+//   max over the thread's lanes, a 5-step __shfl_up_sync scan and a shift
+//   by one thread.  The row loop touches no shared memory and has no
+//   barrier.  DPX: __vibmax_s32 for every max whose tie flag is a
+//   traceback bit (its predicate is a >= b, the >= / > rule of the bits),
+//   __viaddmax_s32 for the F prefix.  A thread stores its L traceback bytes
+//   of a row as one vector (1 to 16 bytes), so a warp writes each row of W
+//   bytes in one coalesced pass.
+// W > 512 (banded_dp_kernel, unchanged): one thread block per alignment,
+//   min(W, 1024) threads each owning W/blockDim contiguous lanes.  The
+//   previous row's H, E and E2 live in shared memory (one buffer: every
+//   read of row i happens before the first barrier, every write after it),
+//   sized dynamically so W = 4096 fits.  The F prefix is a warp-shuffle
+//   scan plus a pass over the per-warp totals; a row costs two block
+//   barriers.
+// Both skip rows at or past qlen (the walk never reads them; their row0
+// entries are set to NEG) and read the target before column 0 or at/after
+// tlen as code 4 (pad).
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>
@@ -283,21 +305,323 @@ int launch_r(const Params& p, bool row0, bool free_end, int threads,
                   : launch_t<DUAL, TB, false, false>(p, threads, smem, s);
 }
 
+// ---------------------------------------------------------------------------
+// W <= 512: one warp per alignment, the row in registers
+// ---------------------------------------------------------------------------
+
+constexpr int WARP_W_MAX = 512;
+constexpr int BRANCH_WARP = 1, BRANCH_BLOCK = 2;
+
+// The design a launch takes: the warp one at every W <= 512, whatever B
+// (it was the faster at every batch size timed, B = 64 included).
+int pick_branch(int W) {
+  return W <= WARP_W_MAX ? BRANCH_WARP : BRANCH_BLOCK;
+}
+
+// Warps (alignments) per block: one below B = 512, so that a small batch
+// lands on as many SMs as it has alignments; four above, so that an SM can
+// hold more than its 32-block limit of warps.
+int warps_per_block(int B) { return B >= 512 ? 4 : 1; }
+
+// Bit k set for the lanes k in [lo, hi) of a thread's L.
+template <int L>
+__device__ __forceinline__ unsigned lane_range(int lo, int hi) {
+  lo = max(lo, 0);
+  hi = min(hi, L);
+  if (hi <= lo) return 0u;
+  return ((1u << hi) - 1u) & ~((1u << lo) - 1u);
+}
+
+// One row's L traceback bytes of a thread as one store (dst is L-aligned).
+template <int L>
+__device__ __forceinline__ void store_row(uint8_t* dst,
+                                          const unsigned (&w)[(L + 3) / 4]) {
+  if constexpr (L == 16) {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (L == 8) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+  } else if constexpr (L == 4) {
+    *reinterpret_cast<unsigned*>(dst) = w[0];
+  } else if constexpr (L == 2) {
+    *reinterpret_cast<unsigned short*>(dst) = (unsigned short)w[0];
+  } else {
+    *dst = (uint8_t)w[0];
+  }
+}
+
+// Code of target column j, 4 outside [0, tlen).
+__device__ __forceinline__ int t_code(const int8_t* t, int j, int tlen) {
+  return (j >= 0 && j < tlen) ? (int)t[j] : 4;
+}
+
+template <int L, bool DUAL, bool TB>
+__global__ void __launch_bounds__(128)
+banded_dp_warp_kernel(Params p, int row0_on, int free_end) {
+  constexpr unsigned FULL = 0xffffffffu;
+  constexpr int W = 32 * L;
+  constexpr int NW = (L + 3) / 4;       // registers of packed target codes
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= p.B) return;                 // ragged last block: whole warps
+  const int d_lo = p.d_lo;
+  const int qlen = p.qlen[b];
+  const int tlen = p.tlen[b];
+  const int rows = min(qlen, p.M);
+  const int8_t* qb = p.q + (size_t)b * p.M;
+  const int8_t* tbase = p.t + (size_t)b * p.N;
+  const int l0 = lane * L;
+  const int goe = p.go + p.ge;
+  const int goe2 = p.go2 + p.ge2;
+
+  // row -1, lane l <-> column -1 + d_lo + l; the target window of row 0,
+  // lane l <-> column d_lo + l, four codes to a register
+  int H[L], E[L], E2[L];
+  unsigned tw[NW];
+#pragma unroll
+  for (int n = 0; n < NW; ++n) tw[n] = 0u;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int ji = -1 + p.d_lo + l0 + k;
+    if (p.free_t_start) {
+      H[k] = (ji >= -1 && ji < tlen) ? 0 : NEG;
+    } else {
+      H[k] = (ji == -1) ? 0
+           : ((ji >= 0 && ji < tlen) ? gap_score<DUAL>(p, ji + 1) : NEG);
+    }
+    E[k] = NEG;
+    E2[k] = NEG;
+    tw[k >> 2] |= (unsigned)(uint8_t)t_code(tbase, ji + 1, tlen)
+                  << (8 * (k & 3));
+  }
+  if (lane == 0 && !(qlen >= 1 && qlen <= p.M)) {  // no last row is reached
+    p.score[b] = NEG;
+    p.end_j[b] = 0;
+  }
+  const int lstar = min(max(tlen - qlen - d_lo, 0), W - 1);
+
+  // query codes of 32 rows, and the target code entering lane W-1 after
+  // each of them, one lane per row; the next 32 are loaded a group ahead
+  int q_cur = (lane < p.M) ? (int)qb[lane] : 4;
+  int t_cur = t_code(tbase, lane + d_lo + W, tlen);
+  int q_nxt = (32 + lane < p.M) ? (int)qb[32 + lane] : 4;
+  int t_nxt = t_code(tbase, 32 + lane + d_lo + W, tlen);
+
+  for (int i = 0; i < rows; ++i) {
+    if ((i & 31) == 0 && i > 0) {
+      q_cur = q_nxt;
+      t_cur = t_nxt;
+      const int r = i + 32 + lane;
+      q_nxt = (r < p.M) ? (int)qb[r] : 4;
+      t_nxt = t_code(tbase, r + d_lo + W, tlen);
+    }
+    const int qi = __shfl_sync(FULL, q_cur, i & 31);
+    const int t_in = __shfl_sync(FULL, t_cur, i & 31);
+    const int qm = (qi < 4) ? qi : INT_MAX;   // a match needs qi < 4
+    // lane l+1 of the previous row for the thread's last lane
+    int h_nx = __shfl_down_sync(FULL, H[0], 1);
+    int e_nx = __shfl_down_sync(FULL, E[0], 1);
+    int e2_nx = DUAL ? __shfl_down_sync(FULL, E2[0], 1) : NEG;
+    const unsigned t_nx = __shfl_down_sync(FULL, tw[0], 1);
+    if (lane == 31) { h_nx = NEG; e_nx = NEG; e2_nx = NEG; }
+
+    const int j0 = i + d_lo + l0;             // column of the thread's k = 0
+    const unsigned valid = lane_range<L>(-j0, tlen - j0);
+    const int kb = -1 - j0;                   // the thread's lane of column -1
+    const unsigned keep =
+        valid | ((kb >= 0 && kb < L) ? (1u << kb) : 0u);
+
+    // ---- E, E2, diagonal: H[k] becomes Htmp, E[k] the new E, in place
+    // (lane k+1 still holds the previous row when lane k reads it) ----
+    int bits[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const int h_up = (k + 1 < L) ? H[k + 1] : h_nx;
+      const int e_up = (k + 1 < L) ? E[k + 1] : e_nx;
+      const int tc = (int)(int8_t)(tw[k >> 2] >> (8 * (k & 3)));
+      const int sub = (tc == qm) ? p.match : p.mismatch;
+      const bool jv = (valid >> k) & 1u;
+      bool e_opens, diag_wins;
+      const int e = __vibmax_s32(h_up + goe, e_up + p.ge, &e_opens);
+      int ht = __vibmax_s32(H[k] + sub, e, &diag_wins);
+      int bt = (e_opens ? TB_E_OPEN : 0) | (diag_wins ? 0 : TB_UP);
+      if (DUAL) {
+        const int e2_up = (k + 1 < L) ? E2[k + 1] : e2_nx;
+        bool e2_opens, h_wins;
+        const int e2 = __vibmax_s32(h_up + goe2, e2_up + p.ge2, &e2_opens);
+        ht = __vibmax_s32(ht, e2, &h_wins);
+        if (e2_opens) bt |= TB_E2_OPEN;
+        if (!h_wins) bt = (bt & ~7) | TB_UP2;
+        E2[k] = jv ? e2 : NEG;
+      }
+      E[k] = jv ? e : NEG;
+      H[k] = ht;
+      bits[k] = bt;
+    }
+    if (i < -d_lo) {                          // column -1 is in the band
+#pragma unroll
+      for (int k = 0; k < L; ++k) {
+        if (k == kb) H[k] = gap_score<DUAL>(p, i + 1);
+      }
+    }
+
+    // ---- F: exclusive max-plus prefix of Htmp - ge*l over the W lanes,
+    // started at NEG (the scan's clamp) ----
+    int tot = NEG, tot2 = NEG;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      tot = __viaddmax_s32(H[k], -p.ge * (l0 + k), tot);
+      if (DUAL) tot2 = __viaddmax_s32(H[k], -p.ge2 * (l0 + k), tot2);
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int n = __shfl_up_sync(FULL, tot, off);
+      if (lane >= off) tot = max(tot, n);
+      if (DUAL) {
+        const int n2 = __shfl_up_sync(FULL, tot2, off);
+        if (lane >= off) tot2 = max(tot2, n2);
+      }
+    }
+    int run = __shfl_up_sync(FULL, tot, 1);
+    int run2 = DUAL ? __shfl_up_sync(FULL, tot2, 1) : NEG;
+    int h_left = __shfl_up_sync(FULL, H[L - 1], 1);   // Htmp of lane l0-1
+    if (lane == 0) { run = NEG; run2 = NEG; h_left = NEG; }
+
+    // ---- H, the traceback byte, the masks ----
+    unsigned tbw[NW];
+#pragma unroll
+    for (int n = 0; n < NW; ++n) tbw[n] = 0u;
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const int l = l0 + k;
+      const int ht = H[k];
+      const int f = run + (p.ge * l + p.go);
+      run = __viaddmax_s32(ht, -p.ge * l, run);
+      int bt = bits[k];
+      if (h_left + goe >= f) bt |= TB_F_OPEN;
+      bool h_wins;
+      int h = __vibmax_s32(ht, f, &h_wins);
+      if (!h_wins) bt = (bt & ~7) | TB_LEFT;
+      if (DUAL) {
+        const int f2 = run2 + (p.ge2 * l + p.go2);
+        run2 = __viaddmax_s32(ht, -p.ge2 * l, run2);
+        if (h_left + goe2 >= f2) bt |= TB_F2_OPEN;
+        bool h2_wins;
+        h = __vibmax_s32(h, f2, &h2_wins);
+        if (!h2_wins) bt = (bt & ~7) | TB_LEFT2;
+      }
+      h_left = ht;
+      H[k] = ((keep >> k) & 1u) ? h : NEG;
+      if (TB) tbw[k >> 2] |= (unsigned)bt << (8 * (k & 3));
+    }
+    if (TB) store_row<L>(p.tb + ((size_t)b * p.M + i) * W + l0, tbw);
+    if (row0_on) {
+      const int kr = -d_lo - l0;              // the thread's lane of diag 0
+      if (kr >= 0 && kr < L) {
+#pragma unroll
+        for (int k = 0; k < L; ++k) {
+          if (k == kr) p.row0[(size_t)i * p.B + b] = H[k];
+        }
+      }
+    }
+    if (i == qlen - 1) {                      // warp-uniform
+      if (free_end) {
+        // best value on the last row, smallest lane among ties (the
+        // scan's argmax); the Pallas kernel picks the largest j instead
+        int bv = INT_MIN, bl = 0;
+#pragma unroll
+        for (int k = 0; k < L; ++k) {
+          const int v = ((valid >> k) & 1u) ? H[k] : NEG;
+          if (v > bv) { bv = v; bl = l0 + k; }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const int ov = __shfl_down_sync(FULL, bv, off);
+          const int ol = __shfl_down_sync(FULL, bl, off);
+          if (ov > bv || (ov == bv && ol < bl)) { bv = ov; bl = ol; }
+        }
+        if (lane == 0) {
+          p.score[b] = bv;
+          p.end_j[b] = i + d_lo + bl;
+        }
+      } else {
+        const int ks = lstar - l0;
+#pragma unroll
+        for (int k = 0; k < L; ++k) {
+          if (k == ks) {
+            p.score[b] = H[k];
+            p.end_j[b] = tlen - 1;
+          }
+        }
+      }
+    }
+
+    // ---- the target window of row i+1: one lane to the left ----
+    const unsigned in = (lane == 31 ? (unsigned)t_in : t_nx) & 0xffu;
+    if constexpr (L % 4 == 0) {
+#pragma unroll
+      for (int n = 0; n + 1 < NW; ++n) {
+        tw[n] = __funnelshift_r(tw[n], tw[n + 1], 8);
+      }
+      tw[NW - 1] = __funnelshift_r(tw[NW - 1], in, 8);
+    } else {
+      tw[0] = (tw[0] >> 8) | (in << (8 * (L - 1)));
+    }
+  }
+  if (row0_on) {
+    for (int i = max(rows, 0) + lane; i < p.M; i += 32) {
+      p.row0[(size_t)i * p.B + b] = NEG;
+    }
+  }
+}
+
+template <int L, bool DUAL, bool TB>
+int launch_warp_l(const Params& p, int row0, int free_end, cudaStream_t s) {
+  const int wpb = warps_per_block(p.B);
+  const int grid = (p.B + wpb - 1) / wpb;
+  banded_dp_warp_kernel<L, DUAL, TB><<<grid, 32 * wpb, 0, s>>>(
+      p, row0, free_end);
+  return (int)cudaGetLastError();
+}
+
+template <bool DUAL, bool TB>
+int launch_warp(const Params& p, int row0, int free_end, cudaStream_t s) {
+  switch (p.W) {
+    case 32: return launch_warp_l<1, DUAL, TB>(p, row0, free_end, s);
+    case 64: return launch_warp_l<2, DUAL, TB>(p, row0, free_end, s);
+    case 128: return launch_warp_l<4, DUAL, TB>(p, row0, free_end, s);
+    case 256: return launch_warp_l<8, DUAL, TB>(p, row0, free_end, s);
+    case 512: return launch_warp_l<16, DUAL, TB>(p, row0, free_end, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" const char* banded_dp_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-extern "C" int banded_dp_launch(
-    const void* q, const void* t, const void* qlen, const void* tlen,
-    int B, int M, int N, int W, int d_lo,
+// The design banded_dp_launch takes at band W: 1 = a warp per alignment
+// (W <= 512), 2 = a block per alignment.
+extern "C" int banded_dp_branch(int W) { return pick_branch(W); }
+
+// banded_dp_launch with the design forced: branch 0 = as banded_dp_launch
+// picks it, 1 = a warp per alignment (W <= 512 only), 2 = a block per
+// alignment.
+extern "C" int banded_dp_launch_branch(
+    int branch, const void* q, const void* t, const void* qlen,
+    const void* tlen, int B, int M, int N, int W, int d_lo,
     int match, int mismatch, int go, int ge, int dual, int go2, int ge2,
     int with_tb, int row0, int free_t_end, int free_t_start,
     void* score, void* end_j, void* tb, void* row0_out, void* stream) {
   // W: a power of two in [32, 4096], so that blockDim = min(W, 1024) is a
   // whole number of warps and each thread owns at most MAXL lanes
   if (W < 32 || W > 1024 * MAXL || (W & (W - 1)) != 0 || B <= 0 || M <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (branch == 0) branch = pick_branch(W);
+  if (branch != BRANCH_WARP && branch != BRANCH_BLOCK)
+    return (int)cudaErrorInvalidValue;
+  if (branch == BRANCH_WARP && W > WARP_W_MAX)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const int8_t*>(q);
@@ -312,14 +636,34 @@ extern "C" int banded_dp_launch(
   p.end_j = static_cast<int*>(end_j);
   p.tb = static_cast<uint8_t*>(tb);
   p.row0 = static_cast<int*>(row0_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (branch == BRANCH_WARP) {
+    if (dual) {
+      return with_tb ? launch_warp<true, true>(p, row0, free_t_end, s)
+                     : launch_warp<true, false>(p, row0, free_t_end, s);
+    }
+    return with_tb ? launch_warp<false, true>(p, row0, free_t_end, s)
+                   : launch_warp<false, false>(p, row0, free_t_end, s);
+  }
   const int threads = W < 1024 ? W : 1024;
   const size_t smem = sizeof(int) *
       ((size_t)(dual ? 3 : 2) * (W + 1) + threads + 4 * 32);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dual) {
     return with_tb ? launch_r<true, true>(p, row0, free_t_end, threads, smem, s)
                    : launch_r<true, false>(p, row0, free_t_end, threads, smem, s);
   }
   return with_tb ? launch_r<false, true>(p, row0, free_t_end, threads, smem, s)
                  : launch_r<false, false>(p, row0, free_t_end, threads, smem, s);
+}
+
+extern "C" int banded_dp_launch(
+    const void* q, const void* t, const void* qlen, const void* tlen,
+    int B, int M, int N, int W, int d_lo,
+    int match, int mismatch, int go, int ge, int dual, int go2, int ge2,
+    int with_tb, int row0, int free_t_end, int free_t_start,
+    void* score, void* end_j, void* tb, void* row0_out, void* stream) {
+  return banded_dp_launch_branch(
+      0, q, t, qlen, tlen, B, M, N, W, d_lo, match, mismatch, go, ge, dual,
+      go2, ge2, with_tb, row0, free_t_end, free_t_start, score, end_j, tb,
+      row0_out, stream);
 }

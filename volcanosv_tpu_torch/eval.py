@@ -23,6 +23,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .device import DEFAULT_DEVICE, resolve_device
 from .io.vcf import VcfRecord
 
 
@@ -105,13 +106,15 @@ def _ins_seq(r: VcfRecord) -> str:
 
 def evaluate(base: list[VcfRecord], comp: list[VcfRecord],
              params: EvalParams = EvalParams(),
-             device="cpu") -> EvalResult:
+             device=DEFAULT_DEVICE) -> EvalResult:
     """Match comp calls against base truth; returns counts + match list.
     The ALT-sequence similarities run as one edit-distance batch on
     `device`.
 
     Records below minsize (or above maxsize, if set) on either side are
     excluded entirely, mirroring truvari's size filter."""
+    device = resolve_device(device)
+
     def keep(r: VcfRecord) -> bool:
         if _svtype(r) == "BND":
             # breakends have no length: size-exempt in the unbounded
@@ -205,7 +208,8 @@ def evaluate(base: list[VcfRecord], comp: list[VcfRecord],
 
 def evaluate_files(base_vcf: str, comp_vcf: str,
                    params: EvalParams = EvalParams(),
-                   device="cpu") -> EvalResult:
+                   device=DEFAULT_DEVICE) -> EvalResult:
+    device = resolve_device(device)
     from .io.vcf import read_vcf
     _h1, base = read_vcf(base_vcf)
     _h2, comp = read_vcf(comp_vcf)

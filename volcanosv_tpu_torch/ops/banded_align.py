@@ -16,7 +16,8 @@ Two kernels, each with a plain PyTorch version of the same function:
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its kernel
-launches in `<wrapper>.launches`.
+launches in `<wrapper>.launches`; `banded_dp.shapes` lists the (mode, B, M,
+W) of each DP launch.
 
 The dispatchers below (`banded_align_cigars_dispatch`, `banded_row0_auto`,
 `edit_distance_batch_auto`) take numpy batches marshalled exactly as the
@@ -28,6 +29,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..device import DEFAULT_DEVICE, resolve_device
 
 # int32 sentinel shared by the plain version and the CUDA kernel (the
 # reference scan's NEG; see csrc/banded_dp.cu for why not the Pallas one)
@@ -205,7 +208,7 @@ def banded_dp_plain(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     return best, best_j, tb, row0
 
 
-def _check_dp_inputs(q, t, qlen, tlen, W):
+def _check_dp_inputs(q, t, qlen, tlen, W, branch):
     for name, x, dt in (("q", q, torch.int8), ("t", t, torch.int8),
                         ("qlen", qlen, torch.int32),
                         ("tlen", tlen, torch.int32)):
@@ -215,16 +218,47 @@ def _check_dp_inputs(q, t, qlen, tlen, W):
     if W < 32 or W > 4096 or W & (W - 1):
         raise ValueError(f"banded_dp: W={W} must be a power of two in "
                          "[32, 4096] on CUDA")
+    if branch not in DP_BRANCHES or (branch == "warp" and W > 512):
+        raise ValueError(f"banded_dp: branch {branch!r} at W={W}")
+
+
+# the kernel's two designs (csrc/banded_dp.cu): "warp", a warp per
+# alignment (W <= 512); "block", a thread block per alignment
+DP_BRANCHES = {"auto": 0, "warp": 1, "block": 2}
+
+
+def banded_dp_branch(W: int) -> str:
+    """The design the CUDA kernel takes at band W."""
+    from . import cuda_build
+    code = cuda_build.lib("banded_dp").banded_dp_branch(W)
+    return {v: k for k, v in DP_BRANCHES.items()}[code]
+
+
+def dp_mode(scores: Scores, with_traceback: bool = True,
+            free_t_end: bool = False, free_t_start: bool = False,
+            row0_scores: bool = False) -> str:
+    """Short name of a DP launch's mode, e.g. "affine+traceback"."""
+    kind = "edit" if scores == Scores.edit() else \
+        ("dual-affine" if scores.dual else "affine")
+    flags = [f for f, on in (("traceback", with_traceback),
+                             ("row0", row0_scores),
+                             ("free_t_end", free_t_end),
+                             ("free_t_start", free_t_start)) if on]
+    return "+".join([kind] + (flags or ["score"]))
 
 
 def banded_dp(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
               tlen: torch.Tensor, W: int, d_lo: int, scores: Scores,
               with_traceback: bool = True, free_t_end: bool = False,
-              free_t_start: bool = False, row0_scores: bool = False):
+              free_t_start: bool = False, row0_scores: bool = False,
+              *, branch: str = "auto"):
     """The DP on q's device: the CUDA kernel for CUDA tensors (launched on
     the current stream, no synchronisation), `banded_dp_plain` for CPU
     tensors.  Same arguments and returns as `banded_dp_plain`; on CUDA the
-    row0 rows ≥ qlen hold NEG."""
+    row0 rows ≥ qlen hold NEG.  `branch` forces one of the kernel's designs
+    (DP_BRANCHES; "auto" lets the launcher pick, as every caller of the
+    port does).  Each launch appends (mode, B, M, W) to
+    `banded_dp.shapes`."""
     if q.device.type == "cpu":
         return banded_dp_plain(q, t, qlen, tlen, W, d_lo, scores,
                                with_traceback, free_t_end, free_t_start,
@@ -232,7 +266,7 @@ def banded_dp(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"banded_dp: unsupported device {q.device}")
     from . import cuda_build
-    _check_dp_inputs(q, t, qlen, tlen, W)
+    _check_dp_inputs(q, t, qlen, tlen, W, branch)
     B, M = q.shape
     dev = q.device
     score = torch.empty(B, dtype=torch.int32, device=dev)
@@ -242,10 +276,10 @@ def banded_dp(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     row0 = torch.empty((M, B), dtype=torch.int32, device=dev) \
         if row0_scores else None
     dual = scores.dual
-    rc = cuda_build.lib("banded_dp").banded_dp_launch(
-        q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
-        B, M, t.shape[1], W, d_lo, scores.match, scores.mismatch,
-        scores.gap_open, scores.gap_extend, int(dual),
+    rc = cuda_build.lib("banded_dp").banded_dp_launch_branch(
+        DP_BRANCHES[branch], q.data_ptr(), t.data_ptr(), qlen.data_ptr(),
+        tlen.data_ptr(), B, M, t.shape[1], W, d_lo, scores.match,
+        scores.mismatch, scores.gap_open, scores.gap_extend, int(dual),
         scores.gap_open2 if dual else 0, scores.gap_extend2 if dual else 0,
         int(with_traceback), int(row0_scores), int(free_t_end),
         int(free_t_start), score.data_ptr(), end_j.data_ptr(),
@@ -254,10 +288,13 @@ def banded_dp(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "banded_dp launch")
     banded_dp.launches += 1
+    banded_dp.shapes.append((dp_mode(scores, with_traceback, free_t_end,
+                                     free_t_start, row0_scores), B, M, W))
     return score, end_j, tb, row0
 
 
 banded_dp.launches = 0
+banded_dp.shapes = []
 
 
 # ---------------------------------------------------------------------------
@@ -356,6 +393,7 @@ tb_walk.launches = 0
 
 def reset_launch_counts() -> None:
     banded_dp.launches = 0
+    banded_dp.shapes = []
     tb_walk.launches = 0
 
 
@@ -427,12 +465,13 @@ def walk_steps(M: int, W: int, qlen, tlen) -> tuple[int, int]:
 
 def banded_align_cigars_dispatch(q, t, qlen, tlen, W: int = 256,
                                  d_lo: int = -64, scores: Scores = Scores(),
-                                 device="cpu"):
+                                 device=DEFAULT_DEVICE):
     """Launch the DP and the traceback walk for a batch without waiting,
     and return a finish() closure that fetches the packed op stream (the
     one device→host copy) and decodes it to one CIGAR [(op, len)] per row
     (op 0=M, 1=I, 2=D).  Callers dispatch several batches, then finish
     them in order, so the device works while the host decodes."""
+    device = resolve_device(device)
     B, M = q.shape
     qd, td, qld, tld = _device_batch(q, t, qlen, tlen, device)
     _s, _e, tb, _r = banded_dp(qd, td, qld, tld, W, d_lo, scores)
@@ -465,16 +504,19 @@ def banded_align_cigars_dispatch(q, t, qlen, tlen, W: int = 256,
 
 
 def banded_align_cigars(q, t, qlen, tlen, W: int = 256, d_lo: int = -64,
-                        scores: Scores = Scores(), device="cpu") -> list:
+                        scores: Scores = Scores(),
+                        device=DEFAULT_DEVICE) -> list:
     """Batched global banded alignment → exact CIGARs, one per row."""
     return banded_align_cigars_dispatch(q, t, qlen, tlen, W=W, d_lo=d_lo,
                                         scores=scores, device=device)()
 
 
 def banded_row0_auto(q, t, qlen, tlen, W: int = 128, d_lo: int = -64,
-                     scores: Scores = Scores(), device="cpu") -> np.ndarray:
+                     scores: Scores = Scores(),
+                     device=DEFAULT_DEVICE) -> np.ndarray:
     """Diagonal-0 score profile (M, B) for the split-DP breakpoint search.
     Only rows < qlen of each column are meaningful."""
+    device = resolve_device(device)
     _s, _e, _tb, row0 = banded_dp(
         *_device_batch(q, t, qlen, tlen, device), W, d_lo, scores,
         with_traceback=False, row0_scores=True)
@@ -482,9 +524,10 @@ def banded_row0_auto(q, t, qlen, tlen, W: int = 128, d_lo: int = -64,
 
 
 def edit_distance_batch_auto(q, t, qlen, tlen, W: int = 128,
-                             d_lo: int | None = None, device="cpu"):
+                             d_lo: int | None = None, device=DEFAULT_DEVICE):
     """Batched banded edit distance (replaces edlib): -score with unit
     costs, (B,) int32 (band-limited, so an upper bound of the distance)."""
+    device = resolve_device(device)
     if d_lo is None:
         d_lo = -(W // 2)
     score, _e, _tb, _r = banded_dp(

@@ -46,6 +46,11 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
     if name == "banded_dp":
         lib.banded_dp_launch.argtypes = [vp, vp, vp, vp] + [ci] * 16 + [vp] * 5
         lib.banded_dp_launch.restype = ci
+        lib.banded_dp_launch_branch.argtypes = \
+            [ci] + lib.banded_dp_launch.argtypes
+        lib.banded_dp_launch_branch.restype = ci
+        lib.banded_dp_branch.argtypes = [ci]
+        lib.banded_dp_branch.restype = ci
         lib.banded_dp_error_string.argtypes = [ci]
         lib.banded_dp_error_string.restype = ctypes.c_char_p
     elif name == "tb_walk":

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..config import PipelineConfig
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..io.bam import BamRecord
 from ..io.vcf import VcfRecord
 from ..ops.pack import revcomp_seq
@@ -114,9 +115,10 @@ def fp_filter_records(records: list[VcfRecord],
 
 def remove_redundancy_records(records: list[VcfRecord],
                               cfg: PipelineConfig,
-                              device="cpu") -> list[VcfRecord]:
+                              device=DEFAULT_DEVICE) -> list[VcfRecord]:
     """Dedup overlapping-contig calls; annotate CollapseId on survivors
     of multi-member components (ref remove_redundancy.py write_vcf)."""
+    device = resolve_device(device)
     if not records:
         return records
     pos = np.array([r.pos for r in records], np.int64)
@@ -166,7 +168,7 @@ def call_chromosome_raw(
     reads_records: list[BamRecord] | None = None,
     reads_sigs: list[Signature] | None = None,
     include_bed: list[tuple[int, int]] | None = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> tuple[list[VcfRecord], list[Signature] | None]:
     """Per-chromosome raw calling up to redundancy removal (the
     Raw_variant_call.py stage).  Returns (records, gt_sigs) where gt_sigs
@@ -174,6 +176,7 @@ def call_chromosome_raw(
     filter_GT_correction.py chain (None without reads).  include_bed
     restricts the GT-signature task grid (sig_extract -include_bed);
     `device` is the torch device the redundancy edit distances run on."""
+    device = resolve_device(device)
     sig_hp1 = extract_contig_signatures(contig_records, chrom, "hp1",
                                         cfg.signature)
     sig_hp2 = extract_contig_signatures(contig_records, chrom, "hp2",
@@ -242,10 +245,11 @@ def call_chromosome(
     cfg: PipelineConfig,
     reads_records: list[BamRecord] | None = None,
     reads_sigs: list[Signature] | None = None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> list[VcfRecord]:
     """Full large-indel calling for one chromosome (single-chrom mode:
     the coverage-filter median is this chromosome's own call set)."""
+    device = resolve_device(device)
     records, gt_sigs = call_chromosome_raw(
         chrom, contig_records, ref_seq, contig_seqs, cfg,
         reads_records=reads_records, reads_sigs=reads_sigs, device=device)

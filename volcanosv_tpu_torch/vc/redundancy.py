@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..config import RedundancyConfig
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops.banded_align import edit_distance_batch_auto, pad_batch_pow2
 from ..ops.pack import encode_seq, pad_codes
 
@@ -44,12 +45,13 @@ def _pow2ceil(n: int) -> int:
 
 def edit_distance_pairs(seq_pairs: list[tuple[str, str]],
                         clip_to: int | None = None,
-                        device="cpu") -> np.ndarray:
+                        device=DEFAULT_DEVICE) -> np.ndarray:
     """Raw edit distance per pair, batched on device (edlib align()
     equivalent).  Banding restricts paths, so the result can only
     OVER-estimate the true distance; with clip_to set, the band is sized so
     any true distance ≤ clip_to is exact — thresholding `dist ≤ clip_to`
     is therefore exact, and larger distances stay conservatively large."""
+    device = resolve_device(device)
     if not seq_pairs:
         return np.zeros(0, np.int64)
     out = np.zeros(len(seq_pairs), np.int64)
@@ -78,13 +80,14 @@ def edit_distance_pairs(seq_pairs: list[tuple[str, str]],
 
 
 def edit_sim_batch(seq_pairs: list[tuple[str, str]],
-                   device="cpu") -> np.ndarray:
+                   device=DEFAULT_DEVICE) -> np.ndarray:
     """(len1+len2-ed)/(len1+len2) per pair, batched on device.
 
     Band width per length bucket covers the maximum length difference the
     size-sim prefilter admits, so matching (similar) pairs get their exact
     distance; truly dissimilar pairs may be clipped low — which only makes
     them non-matches, same as the reference."""
+    device = resolve_device(device)
     if not seq_pairs:
         return np.zeros(0)
     sims = np.zeros(len(seq_pairs))
@@ -109,10 +112,11 @@ def edit_sim_batch(seq_pairs: list[tuple[str, str]],
 
 def find_redundant(
     pos: np.ndarray, svlen: np.ndarray, is_del: np.ndarray,
-    alt_seqs: list[str], cfg: RedundancyConfig, device="cpu",
+    alt_seqs: list[str], cfg: RedundancyConfig, device=DEFAULT_DEVICE,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Returns (keep_mask, collapse_id) per call; collapse_id -1 when the
     call is in no collapse group."""
+    device = resolve_device(device)
     n = len(pos)
     uf = _UnionFind(n)
     order = np.argsort(pos, kind="stable")
