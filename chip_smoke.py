@@ -8,22 +8,34 @@ kernels from `volcanosv_tpu_torch/csrc/` with nvcc, and writes its data
 under `build/chip_smoke/`.  It imports nothing of JAX or of the JAX package.
 
 Phase 1  each kernel against its plain PyTorch version on the card, at the
-         shapes the vc-large-indel path gives it: scores, end columns,
-         row-0 profiles and traceback bytes (rows < qlen) bit-equal,
-         packed walk streams bit-equal, decoded CIGARs equal.  Where both
-         of banded_dp's designs take the band (W <= 512: a warp per
-         alignment, or a block per alignment) both are checked and timed,
-         in turns (block, warp, warp, block).  Times are medians of
-         CUDA-event-timed runs after warm-up (the plain versions: their
-         one checked call); each row gives the design the launcher picks,
-         GCUPS = B*M*W / time, the bound (`_dp_bound`, `_walk_bound`) and
-         the share of it.
+         shapes the vc-large-indel path gives it (and the consensus vote's
+         W=64 traceback): scores, end columns, row-0 profiles and
+         traceback bytes (rows < qlen) bit-equal, packed walk streams and
+         done flags bit-equal (at the bucketed step bound and at a bound
+         that cuts about half the walks short), decoded CIGARs equal.
+         Where both of banded_dp's designs take the band (W <= 512: a warp
+         per alignment, or a block per alignment) both are checked and
+         timed, in turns (block, warp, warp, block); tb_walk's two designs
+         (a warp per alignment over tiles in shared memory, or a thread
+         per alignment) likewise (thread, warp, warp, thread).  DP times
+         are medians of CUDA-event-timed single launches after warm-up;
+         walk times are device time per launch of a queue of launches
+         held behind a sleep kernel, so that the host's launch cost is not
+         timed; the plain versions: their one checked call.  Each row
+         gives the design the launcher picks, GCUPS = B*M*W / time (DP),
+         the bound (`_dp_bound`, `_walk_bound`) and the share of it.  A
+         walk row adds `chain_ms`: the longest walk's steps times the
+         card's shared-memory load-to-use latency, measured once by one
+         warp chasing pointers through shared memory (the floor of any
+         design that walks step by step), and its share of the time.
 Phase 2  `vc-large-indel` through the port's CLI with `--device cuda` on a
          simulated 10 Mb chromosome (80 DEL + 80 INS of 50-2000 bp,
          120 kb phase-block contigs, HiFi reads at 10x); both kernels must
-         have launched in that run, and the port's `eval` must give recall
-         and precision >= 0.85 against the implanted truth.  The (mode, B,
-         M, W) of every banded_dp launch is listed.  A user's unit is a
+         have launched in that run (with the default seed: 17 and 15
+         times, every walk on the warp design), and the port's `eval` must
+         give recall and precision >= 0.85 against the implanted truth.
+         The (mode, B, M, W) of every banded_dp launch and the (design, B,
+         M, W) of every tb_walk launch are listed.  A user's unit is a
          whole chromosome (50-250 Mb); 10 Mb only fits the run's time
          limit.  With --profile the run is traced with torch.profiler and
          the device time by kernel is printed.
@@ -73,6 +85,9 @@ DP_OPS_PER_CELL = {(False, False): 13, (False, True): 20,
 # state transition (8), the two moves and the done test (4), the op code
 # and its packing (2).
 WALK_OPS_PER_STEP = 25
+# the main path's kernel launches on the 10 Mb slice with the default seed
+# (the path is deterministic)
+EXPECTED_LAUNCHES = {"banded_dp": 17, "tb_walk": 15}
 
 
 def _log(msg: str) -> None:
@@ -94,6 +109,48 @@ def _time_ms(fn, warmup: int, runs: int) -> float:
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
     return statistics.median(times)
+
+
+def _time_queued_ms(fn, runs: int = 10) -> float:
+    """Device milliseconds per call of `fn`: `runs` calls queued behind a
+    sleep kernel, so that the events time the kernels and not the host's
+    launch cost.  The sleep doubles until it outlasts the enqueueing."""
+    import torch
+    for _ in range(2):
+        fn()
+    cycles = 2_000_000
+    while True:
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        s.record()
+        for _ in range(runs):
+            fn()
+        e.record()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        # the sleep lasts at least cycles / 2 GHz (the SM clock is below
+        # 2 GHz); keep a fifth of that as margin
+        if host_s < 0.8 * cycles / 2e9:
+            return s.elapsed_time(e) / runs
+        cycles *= 2
+
+
+def _smem_latency() -> dict:
+    """One warp chasing 2^20 dependent shared-memory loads: cycles and
+    nanoseconds per load (the load-to-use latency)."""
+    import torch
+
+    from volcanosv_tpu_torch.ops import cuda_build
+    n = 1 << 20
+    out = torch.zeros(3, dtype=torch.int64, device="cuda")
+    cuda_build.check(cuda_build.lib("tb_walk").smem_chase(
+        n, out.data_ptr(), torch.cuda.current_stream().cuda_stream),
+        "smem_chase")
+    cycles, ns, _ = out.tolist()
+    return dict(cycles=cycles / n, ns=ns / n)
 
 
 def _bound(n_bytes: float, n_ops: float) -> dict:
@@ -120,14 +177,20 @@ def _dp_bound(qlen, tlen, M: int, W: int, B: int, dual: bool, tb: bool,
     return _bound(n_bytes, cells * DP_OPS_PER_CELL[(dual, tb)])
 
 
+def _walk_lengths(ops):
+    """Steps each walk of an (n_steps, B) op stream takes before it is
+    done (through the last step that emits an op)."""
+    import numpy as np
+    moved = ops != 3
+    return np.where(moved.any(0),
+                    ops.shape[0] - np.argmax(moved[::-1], 0), 0)
+
+
 def _walk_bound(ops, n_steps: int, B: int) -> dict:
     """Bound of one tb_walk call: the steps each walk takes before it is
-    done (the last step that emits an op), one traceback byte read per
-    step, the lengths read, the packed stream and done flags written."""
-    import numpy as np
-    moved = ops != 3                                     # (n_steps, B)
-    steps = np.where(moved.any(0),
-                     n_steps - np.argmax(moved[::-1], 0), 0).sum()
+    done, one traceback byte read per step, the lengths read, the packed
+    stream and done flags written."""
+    steps = int(_walk_lengths(ops).sum())
     n_bytes = steps + 8 * B + n_steps // 4 * B + B
     return _bound(n_bytes, steps * WALK_OPS_PER_STEP)
 
@@ -173,6 +236,8 @@ def phase1_kernels(seed: int):
                          c.gap_open2, c.gap_extend2)
 
     asm5, asm20 = scores_of("asm5"), scores_of("asm20")
+    # the consensus vote's scores (olc.py::_vote_scores in the JAX package)
+    vote = ba.Scores(match=2, mismatch=-3, gap_open=-4, gap_extend=-2)
     row0 = dict(with_traceback=False, row0_scores=True)
     score_only = dict(with_traceback=False)
     cases = [  # mode, B, M, W, d_lo, scores, DP flags
@@ -192,10 +257,15 @@ def phase1_kernels(seed: int):
         ("traceback", 1001, 512, 256, -128, asm5, {}),
         ("edit", 1024, 512, 512, -256, ba.Scores.edit(), score_only),
         ("dual-affine traceback", 256, 512, 512, -256, asm20, {}),
+        # the consensus vote's band (olc.py::_batched_cigars)
+        ("consensus traceback", 2048, 1024, 64, -32, vote, {}),
     ]
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
     dp_rows, walk_rows = [], []
+    smem = _smem_latency()
+    _log(f"shared-memory load-to-use latency: {smem['cycles']:.2f} cycles, "
+         f"{smem['ns']:.3f} ns (one warp, pointer chase)")
 
     def timed_once(fn):
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -246,16 +316,35 @@ def phase1_kernels(seed: int):
         _log(f"banded_dp {json.dumps(row)}")
         if kern[2] is None:
             continue
+        tb = kern[2]
         n_steps, _full = ba.walk_steps(M, W, ql, tl)
-        pk, dk = ba.tb_walk(kern[2], args[2], args[3], d_lo, n_steps)
         (pp, dp), wplain = timed_once(lambda: ba.tb_walk_plain(
-            kern[2], args[2], args[3], d_lo, n_steps))
-        ops_k = ba._unpack_ops(pk.cpu().numpy())
-        werr = int(np.abs(ops_k.astype(np.int16)
-                          - ba._unpack_ops(pp.cpu().numpy())).max())
-        if werr or not torch.equal(dk, dp) or not bool(dk.all()):
-            raise AssertionError(f"tb_walk {mode}: kernel != plain or "
-                                 "unfinished walks")
+            tb, args[2], args[3], d_lo, n_steps))
+        ops_p = ba._unpack_ops(pp.cpu().numpy())
+        lengths = _walk_lengths(ops_p)
+        # a bound that cuts about half the walks short (done = false)
+        n_cut = max(4, int(np.median(lengths)) // 4 * 4)
+        pcut, dcut = ba.tb_walk_plain(tb, args[2], args[3], d_lo, n_cut)
+        ops_cut = ba._unpack_ops(pcut.cpu().numpy())
+        if not bool(dp.all()):
+            raise AssertionError(f"tb_walk {mode}: plain walks unfinished "
+                                 "at the bucketed bound")
+        werr = 0
+        for br in ("thread", "warp", "auto"):
+            for steps, want, want_done in ((n_steps, ops_p, dp),
+                                           (n_cut, ops_cut, dcut)):
+                pk, dk = ba.tb_walk(tb, args[2], args[3], d_lo, steps,
+                                    branch=br)
+                ops_k = ba._unpack_ops(pk.cpu().numpy())
+                werr = max(werr, int(np.abs(ops_k.astype(np.int16)
+                                            - want).max()))
+                if werr or not torch.equal(dk, want_done):
+                    raise AssertionError(
+                        f"tb_walk {mode} B={B} M={M} W={W} {br} at "
+                        f"{steps} steps: kernel != plain (streams or done)")
+                if steps == n_steps:
+                    ops_full = ops_k
+        ops_k = ops_full                 # "auto", the last design checked
         # end to end: kernel DP + kernel walk vs plain DP + plain walk
         pp2, _ = ba.tb_walk_plain(plain[2], args[2], args[3], d_lo, n_steps)
         cig_k = ba._rle_columns(ops_k, B)
@@ -263,17 +352,27 @@ def phase1_kernels(seed: int):
         if cig_k != cig_p:
             raise AssertionError(f"{mode}: CIGARs differ between kernels "
                                  "and plain versions")
-        wms = _time_ms(
-            lambda: ba.tb_walk(kern[2], args[2], args[3], d_lo, n_steps), 2, 5)
+        wtimes = {"thread": [], "warp": []}
+        for br in ("thread", "warp", "warp", "thread"):
+            wtimes[br].append(_time_queued_ms(lambda: ba.tb_walk(
+                tb, args[2], args[3], d_lo, n_steps, branch=br)))
+        wtaken = ba.tb_walk_branch(tb)
+        wms = statistics.mean(wtimes[wtaken])
         wbound = _walk_bound(ops_k, n_steps, B)
-        wrow = dict(mode=mode, B=B, M=M, W=W, n_steps=n_steps,
-                    max_abs_err=werr, ms=wms, plain_ms=wplain,
+        chain_ms = int(lengths.max()) * smem["ns"] * 1e-6
+        wrow = dict(mode=mode, B=B, M=M, W=W, n_steps=n_steps, n_cut=n_cut,
+                    cut_unfinished=int((~dcut).sum()), branch=wtaken,
+                    max_abs_err=werr, ms=wms,
+                    ms_by_branch={br: statistics.mean(v)
+                                  for br, v in wtimes.items()},
+                    plain_ms=wplain, longest_walk=int(lengths.max()),
+                    chain_ms=chain_ms, share_of_chain=chain_ms / wms,
                     share_of_bound=wbound["bound_ms"] / wms, **wbound)
         walk_rows.append(wrow)
         _log(f"tb_walk {json.dumps(wrow)}")
-        del kern, plain
+        del kern, plain, tb
         torch.cuda.empty_cache()
-    return dp_rows, walk_rows
+    return dp_rows, walk_rows, smem
 
 
 def _write_case(d: str, seed: int, length: int, n_del: int, n_ins: int):
@@ -367,13 +466,20 @@ def phase2_slice(seed: int, profile: bool):
     dp_shapes = [dict(mode=m, B=B, M=M, W=W,
                       branch=ba.banded_dp_branch(W), count=n)
                  for (m, B, M, W), n in Counter(ba.banded_dp.shapes).items()]
+    walk_shapes = [dict(branch=br, B=B, M=M, W=W, count=n)
+                   for (br, B, M, W), n in Counter(ba.tb_walk.shapes).items()]
     if rc != 0:
         raise AssertionError(f"vc-large-indel exited {rc}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
+    if seed == 0 and launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"launches {launches} != {EXPECTED_LAUNCHES}")
+    if any(br != "warp" for br, *_ in ba.tb_walk.shapes):
+        raise AssertionError("a main-path walk took the thread design")
     _log(f"phase 2: vc-large-indel {wall:.1f} s, launches {launches}\n"
          f"phase 2: banded_dp launches by shape {json.dumps(dp_shapes)}\n"
+         f"phase 2: tb_walk launches by shape {json.dumps(walk_shapes)}\n"
          + stage_report())
     profile_info = None
     if profile:
@@ -389,7 +495,8 @@ def phase2_slice(seed: int, profile: bool):
     stages = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
     return launches, dict(wall_s=wall, sim_s=sim_s, eval=summary,
                           stages=stages, launches=launches,
-                          banded_dp_shapes=dp_shapes, profile=profile_info)
+                          banded_dp_shapes=dp_shapes,
+                          tb_walk_shapes=walk_shapes, profile=profile_info)
 
 
 def phase3_cuda_vs_cpu(seed: int) -> None:
@@ -441,7 +548,7 @@ def main() -> int:
          f"{time.perf_counter() - t_start:.1f} s "
          f"({cuda_build.build_dir()}) on {smi}")
 
-    dp_rows, walk_rows = phase1_kernels(args.seed)
+    dp_rows, walk_rows, smem = phase1_kernels(args.seed)
     launches, slice_info = phase2_slice(args.seed, args.profile)
     phase3_cuda_vs_cpu(args.seed)
 
@@ -463,7 +570,9 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in walk_rows),
              ms=head_walk["ms"], plain_ms=head_walk["plain_ms"],
              bound_ms=head_walk["bound_ms"], bound_by=head_walk["bound_by"],
-             library_ms=None, shapes=walk_rows),
+             library_ms=None, chain_ms=head_walk["chain_ms"],
+             smem_latency_cycles=smem["cycles"], smem_latency_ns=smem["ns"],
+             shapes=walk_rows),
     ]
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"slice": slice_info}))

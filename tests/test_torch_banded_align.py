@@ -203,6 +203,106 @@ def test_gap_dense_walk_takes_full_bound():
     assert cigs == _host_cigars(tb, qlen, tlen, d_lo)
 
 
+def _long_gap_case(rng, B, M, W, d_lo):
+    """_case pairs, most with one implanted gap of W/4 .. W/2-8 bases (an
+    insertion or a deletion), lengths kept in the band."""
+    q, t, qlen, tlen = _case(rng, B, M, W, d_lo)
+    for b in range(B):
+        ql = int(qlen[b])
+        k = int(rng.integers(W // 4, W // 2 - 7))
+        at = int(rng.integers(0, ql - k))
+        seq = q[b, :ql].copy()
+        seq = np.delete(seq, np.arange(at, at + k)) if b % 2 else \
+            np.insert(seq, at, rng.integers(0, 4, k).astype(np.int8))
+        tl = int(np.clip(len(seq), ql + d_lo + 1, ql + d_lo + W - 1))
+        seq = np.concatenate([seq, np.zeros(max(0, tl - len(seq)), np.int8)])
+        t[b] = 4
+        t[b, :tl] = seq[:tl]
+        tlen[b] = tl
+    return q, t, qlen, tlen
+
+
+def _random_tb(rng, B, M, W, stuck):
+    """(M, B, W) random traceback bytes: gap choices (1-4) 5% each, open
+    flags 3% each, so that gap runs average ~30 steps; with `stuck`, a few
+    cells carry a choice 5-7 (the walk stops moving there) and bit 7, which
+    the walk ignores."""
+    u = rng.random((M, B, W))
+    choice = np.zeros((M, B, W), np.uint8)
+    for c in range(1, 5):
+        choice[(u >= 1 - c * 0.05) & (u < 1 - (c - 1) * 0.05)] = c
+    if stuck:
+        choice[u < 3e-3] = 5 + (rng.random(int((u < 3e-3).sum())) * 3
+                                ).astype(np.uint8)
+    flags = sum((rng.random((M, B, W)) < 0.03).astype(np.uint8) * bit
+                for bit in (8, 16, 32, 64))
+    tb = choice | flags.astype(np.uint8)
+    if stuck:
+        tb |= (rng.random((M, B, W)) < 0.1).astype(np.uint8) * 128
+    return tb
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["full", "cut"])
+@pytest.mark.parametrize("source", ["dp_affine", "dp_dual", "random",
+                                    "random_stuck"])
+def test_walk_plain_matches_walk_device_on_hard_walks(source, cut):
+    """The walks the CUDA kernel's tiles find hardest, against the JAX
+    device walk: long I/D runs (DP tracebacks of pairs with a long gap;
+    dual-affine ones walk states 3 and 4), random tracebacks (runs that
+    leave the band, stuck walks, lengths 0 and 1 and past the band), at
+    the full step bound and at a bound that cuts about half the walks
+    short (done = false, the same stream)."""
+    W, d_lo, M, B = 64, -32, 96, 8
+    rng = np.random.default_rng(["dp_affine", "dp_dual", "random",
+                                 "random_stuck"].index(source))
+    if source.startswith("dp"):
+        sc = DUAL if source == "dp_dual" else {}
+        q, t, qlen, tlen = _long_gap_case(rng, B, M, W, d_lo)
+        tb = _scan_tb(q, t, qlen, tlen, W, d_lo, sc)
+    else:
+        tb = _random_tb(rng, B, M, W, source == "random_stuck")
+        qlen = rng.integers(0, M + 1, B).astype(np.int32)
+        tlen = np.clip(qlen + d_lo + rng.integers(-8, W + 8, B), 0,
+                       None).astype(np.int32)
+        qlen[:3], tlen[:3] = (0, 1, 0), (0, 1, 5)
+    _n, full = port.walk_steps(M, W, qlen, tlen)
+    tb_port = _t(tb.transpose(1, 0, 2), np.uint8)
+    steps = full
+    if cut:
+        ops = port._unpack_ops(port.tb_walk_plain(
+            tb_port, _t(qlen, np.int32), _t(tlen, np.int32), d_lo,
+            full)[0].numpy())
+        moved = ops != 3
+        lengths = np.where(moved.any(0), full - np.argmax(moved[::-1], 0), 0)
+        steps = max(4, int(np.median(lengths)) // 4 * 4)
+    got, done = port.tb_walk_plain(tb_port, _t(qlen, np.int32),
+                                   _t(tlen, np.int32), d_lo, steps)
+    want, want_done = ref._walk_device(
+        jnp.asarray(tb.transpose(0, 2, 1)), jnp.asarray(qlen),
+        jnp.asarray(tlen), d_lo, steps, pack=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(done.numpy(), np.asarray(want_done))
+    if cut:
+        assert not bool(done.all())
+    elif source.startswith("dp"):
+        assert bool(done.all())
+        runs = port._rle_columns(port._unpack_ops(got.numpy()), B)
+        assert max(n for r in runs for o, n in r if o) >= W // 4 - 2
+
+
+def test_walk_branch_names_on_cpu():
+    """On the CPU every design name runs the plain walk; others raise."""
+    tb = _t(_random_tb(np.random.default_rng(3), 2, 16, 32, False)
+            .transpose(1, 0, 2), np.uint8)
+    ln = _t(np.array([16, 9]), np.int32)
+    want = port.tb_walk_plain(tb, ln, ln, -16, 64)
+    for br in port.WALK_BRANCHES:
+        got = port.tb_walk(tb, ln, ln, -16, 64, branch=br)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError):
+        port.tb_walk(tb, ln, ln, -16, 64, branch="block")
+
+
 def test_dispatchers_match_reference_on_cpu():
     """Padded batches as the aligner and redundancy removal build them."""
     rng = np.random.default_rng(17)

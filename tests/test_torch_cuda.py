@@ -8,7 +8,11 @@ without them:
 Band widths cover the path's range (32 … 4096), every DP mode, both of the
 kernel's designs where both take the band (W <= 512: a warp per alignment,
 or a block), batches of 1 to 517 alignments, and the walk; integer outputs
-and the traceback bytes of rows < qlen must be bit-equal (tolerance 0)."""
+and the traceback bytes of rows < qlen must be bit-equal (tolerance 0).
+The walk's two designs (a warp per alignment over tiles staged in shared
+memory, or a thread per alignment) are held to the plain walk on DP
+tracebacks with long gaps and on random tracebacks, at the bucketed, the
+full and a cut step bound: packed streams and done flags bit-equal."""
 import numpy as np
 import pytest
 import torch
@@ -141,6 +145,144 @@ def test_dispatch_cigars_match_cpu(cuda):
         ba.edit_distance_batch_auto(q, t, qlen, tlen, W=W, device="cpu"))
 
 
+def _gappy_pairs(rng, B, M, W, d_lo, max_gap):
+    """Like _pairs, plus one long gap (up to max_gap bases, an insertion or
+    a deletion) in most pairs, and the edge rows: qlen 0, tlen 0, the
+    padding rows of pad_batch_pow2 (qlen = tlen = 1, code 4) and qlen 1."""
+    q, t, qlen, tlen = _pairs(rng, B, M, W, d_lo)
+    for b in range(B):
+        kind = (b + 4) % 8                     # row 0 has the long gap
+        if kind == 0:
+            qlen[b], tlen[b] = 0, int(rng.integers(0, W // 2))
+        elif kind == 1:
+            qlen[b], tlen[b] = int(rng.integers(1, M + 1)), 0
+        elif kind == 2:
+            q[b], t[b] = 4, 4
+            qlen[b] = tlen[b] = 1
+        elif kind == 3:
+            qlen[b], tlen[b] = 1, int(rng.integers(1, W // 2 + 1))
+        else:
+            ql = int(qlen[b])
+            seq = q[b, :ql].copy()
+            k = int(rng.integers(2 * max_gap // 3, max_gap + 1))
+            at = int(rng.integers(0, max(1, ql - k)))
+            if b % 2:
+                seq = np.delete(seq, np.arange(at, min(ql, at + k)))
+            else:
+                seq = np.insert(seq, at, rng.integers(0, 4, k).astype(np.int8))
+            tl = int(np.clip(len(seq), max(1, ql + d_lo + 1),
+                             ql + d_lo + W - 1))
+            seq = np.concatenate([seq, np.zeros(max(0, tl - len(seq)),
+                                                np.int8)])
+            t[b] = 4
+            t[b, :tl] = seq[:tl]
+            tlen[b] = tl
+        q[b, qlen[b]:] = 4
+    return q, t, qlen, tlen
+
+
+def _walk_lengths(packed):
+    """Steps each walk took until done (the last op that is not "none")."""
+    ops = ba._unpack_ops(packed.cpu().numpy())
+    moved = ops != 3
+    return np.where(moved.any(0),
+                    ops.shape[0] - np.argmax(moved[::-1], 0), 0)
+
+
+def _check_walk(tb, qlen, tlen, d_lo, step_bounds):
+    """Both designs and "auto" against the plain walk at each step bound:
+    packed streams and done flags bit-equal; "auto" takes the warp design
+    on every traceback of this file."""
+    for n_steps in step_bounds:
+        pp, dp = ba.tb_walk_plain(tb, qlen, tlen, d_lo, n_steps)
+        for br in ("auto", "warp", "thread"):
+            ba.reset_launch_counts()
+            pk, dk = ba.tb_walk(tb, qlen, tlen, d_lo, n_steps, branch=br)
+            torch.cuda.synchronize()
+            assert torch.equal(pk, pp), (br, n_steps)
+            assert torch.equal(dk, dp), (br, n_steps)
+            want = "warp" if br == "auto" else br
+            assert ba.tb_walk.shapes == [(want, *tb.shape)]
+    return pp, dp
+
+
+def _cut(lengths):
+    """A step bound that cuts about half the walks short."""
+    return max(4, int(np.median(lengths)) // 4 * 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scores,B,M,W", [
+    ("affine", 4096, 256, 256), ("affine", 517, 1024, 128),
+    ("affine", 37, 512, 64), ("dual", 64, 2048, 512),
+    ("dual", 1, 8192, 256), ("affine", 64, 8192, 256),
+])
+def test_tb_walk_matches_plain_on_dp_tracebacks(cuda, scores, B, M, W):
+    """Walks over the DP kernel's tracebacks of pairs with one long gap
+    (longer than the warp design's 64-byte window where W >= 128; with
+    dual-affine scores the long-gap states 3 and 4), walks longer than
+    one 32-row tile, and the edge rows of _gappy_pairs."""
+    d_lo = -(W // 2)
+    rng = np.random.default_rng(B + M + W)
+    max_gap = W // 2 - 8
+    q, t, qlen, tlen = _gappy_pairs(rng, B, M, W, d_lo, max_gap)
+    args = [torch.from_numpy(x).to(cuda) for x in (q, t, qlen, tlen)]
+    sc = DUAL if scores == "dual" else ba.Scores()
+    tb = ba.banded_dp(*args, W, d_lo, sc)[2]
+    n_steps, full = ba.walk_steps(M, W, qlen, tlen)
+    pp, dp = _check_walk(tb, args[2], args[3], d_lo, [n_steps])
+    assert bool(dp.all())
+    _, dcut = _check_walk(tb, args[2], args[3], d_lo,
+                          [_cut(_walk_lengths(pp))])
+    assert B == 1 or not bool(dcut.all())
+    if M <= 2048:
+        _check_walk(tb, args[2], args[3], d_lo, [full])
+    # the implanted gaps come out as long I/D runs (W = 256, 512: longer
+    # than the window)
+    runs = ba._rle_columns(ba._unpack_ops(pp.cpu().numpy()), B)
+    assert max(n for r in runs for o, n in r if o) >= 2 * max_gap // 3 - 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M,W,p_gap,p_open,stuck", [
+    (37, 1024, 512, 0.02, 0.01, False),
+    (517, 512, 128, 0.05, 0.03, True),
+    (64, 4096, 64, 0.03, 0.05, False),
+    (1, 2048, 256, 0.01, 0.005, False),
+    (4096, 128, 256, 0.02, 0.02, True),
+])
+def test_tb_walk_matches_plain_on_random_tracebacks(cuda, B, M, W, p_gap,
+                                                    p_open, stuck):
+    """Random traceback bytes: each gap choice (1-4) with probability
+    p_gap, each open flag with p_open, so that gap runs average 1/p_open
+    steps (runs far longer than the window, walks that leave the band);
+    with `stuck`, a few cells carry a choice 5-7, on which the walk stops
+    moving and never finishes.  Lengths anywhere in [0, M] and in the
+    band's target range."""
+    g = torch.Generator(device=cuda).manual_seed(B * M + W)
+    u = torch.rand((B, M, W), generator=g, device=cuda)
+    choice = torch.zeros((B, M, W), dtype=torch.int32, device=cuda)
+    for c in range(1, 5):
+        choice[(u >= 1 - c * p_gap) & (u < 1 - (c - 1) * p_gap)] = c
+    if stuck:
+        choice[u < 2e-4] = (5 + (u[u < 2e-4] * 1e6).long() % 3).int()
+    flags = torch.zeros_like(choice)
+    for bit in (8, 16, 32, 64):
+        flags |= (torch.rand((B, M, W), generator=g, device=cuda)
+                  < p_open).int() * bit
+    tb = (choice | flags).to(torch.uint8)
+    rng = np.random.default_rng(W)
+    d_lo = -(W // 2)
+    qlen = rng.integers(0, M + 1, B).astype(np.int32)
+    tlen = np.clip(qlen + d_lo + rng.integers(-8, W + 8, B), 0,
+                   None).astype(np.int32)
+    qlen[:4], tlen[:4] = (0, 0, 1, M)[:B], (0, 1, 1, M + d_lo)[:B]
+    ql, tl = (torch.from_numpy(x).to(cuda) for x in (qlen, tlen))
+    n_steps, full = ba.walk_steps(M, W, qlen, tlen)
+    pp, _ = _check_walk(tb, ql, tl, d_lo, [n_steps, full])
+    _check_walk(tb, ql, tl, d_lo, [_cut(_walk_lengths(pp))])
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_bad_inputs(cuda):
     q = torch.zeros((2, 8), dtype=torch.int8, device=cuda)
@@ -154,3 +296,15 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         ba.tb_walk(torch.zeros((2, 8, 64), dtype=torch.uint8, device=cuda),
                    ln, ln, -32, 6)                               # not 4k steps
+    with pytest.raises(ValueError):                          # warp: W % 32
+        ba.tb_walk(torch.zeros((2, 8, 40), dtype=torch.uint8, device=cuda),
+                   ln, ln, -20, 64, branch="warp")
+    with pytest.raises(ValueError):
+        ba.tb_walk(torch.zeros((2, 8, 64), dtype=torch.uint8, device=cuda),
+                   ln, ln, -32, 64, branch="block")
+    # a band the warp design cannot stage takes the thread design
+    tb = torch.zeros((2, 8, 40), dtype=torch.uint8, device=cuda)
+    assert ba.tb_walk_branch(tb) == "thread"
+    pk, dk = ba.tb_walk(tb, ln, ln, -20, 64)
+    pp, dp = ba.tb_walk_plain(tb, ln, ln, -20, 64)
+    assert torch.equal(pk, pp) and torch.equal(dk, dp)

@@ -17,7 +17,7 @@ Two kernels, each with a plain PyTorch version of the same function:
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its kernel
 launches in `<wrapper>.launches`; `banded_dp.shapes` lists the (mode, B, M,
-W) of each DP launch.
+W) of each DP launch, `tb_walk.shapes` the (design, B, M, W) of each walk.
 
 The dispatchers below (`banded_align_cigars_dispatch`, `banded_row0_auto`,
 `edit_distance_batch_auto`) take numpy batches marshalled exactly as the
@@ -358,43 +358,72 @@ def tb_walk_plain(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
     return packed, done
 
 
+# the walk kernel's two designs (csrc/tb_walk.cu): "warp", a warp per
+# alignment walking tiles of the traceback staged in shared memory;
+# "thread", a thread per alignment reading the traceback in device memory
+WALK_BRANCHES = {"auto": 0, "warp": 1, "thread": 2}
+
+
+def tb_walk_branch(tb: torch.Tensor) -> str:
+    """The design the CUDA kernel takes for this traceback: "warp" where
+    W % 32 == 0 and tb is 16-byte aligned (every traceback banded_dp
+    writes), else "thread"."""
+    from . import cuda_build
+    code = cuda_build.lib("tb_walk").tb_walk_branch(tb.data_ptr(),
+                                                    tb.shape[2])
+    return {v: k for k, v in WALK_BRANCHES.items()}[code]
+
+
 def tb_walk(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
-            d_lo: int, n_steps: int):
+            d_lo: int, n_steps: int, *, branch: str = "auto"):
     """The walk on tb's device: the CUDA kernel for CUDA tensors, launched
     on the current stream right behind the DP; `tb_walk_plain` for CPU
-    tensors.  Same arguments and returns as `tb_walk_plain`."""
+    tensors.  Same arguments and returns as `tb_walk_plain`.  `branch`
+    forces one of the kernel's designs (WALK_BRANCHES; "auto" lets the
+    launcher pick, as every caller of the port does).  Each launch appends
+    (design, B, M, W) to `tb_walk.shapes`."""
+    if branch not in WALK_BRANCHES:
+        raise ValueError(f"tb_walk: unknown branch {branch!r}")
     if tb.device.type == "cpu":
         return tb_walk_plain(tb, qlen, tlen, d_lo, n_steps)
     if tb.device.type != "cuda":
         raise ValueError(f"tb_walk: unsupported device {tb.device}")
     from . import cuda_build
-    if n_steps % 4:
-        raise ValueError(f"n_steps={n_steps} must be a multiple of 4")
+    if n_steps % 4 or n_steps <= 0:
+        raise ValueError(f"n_steps={n_steps} must be a positive multiple "
+                         "of 4")
     for name, x, dt in (("tb", tb, torch.uint8), ("qlen", qlen, torch.int32),
                         ("tlen", tlen, torch.int32)):
         if x.dtype != dt or not x.is_contiguous() or x.device != tb.device:
             raise ValueError(f"tb_walk: {name} must be a contiguous {dt} "
                              f"tensor on {tb.device}")
     B, M, W = tb.shape
+    taken = tb_walk_branch(tb) if branch == "auto" else branch
+    if taken == "warp" and (W % 32 or tb.data_ptr() % 16):
+        raise ValueError(f"tb_walk: the warp design needs W % 32 == 0 and "
+                         f"a 16-byte aligned traceback (W={W})")
     packed = torch.empty((n_steps // 4, B), dtype=torch.uint8,
                          device=tb.device)
     done = torch.empty(B, dtype=torch.bool, device=tb.device)
-    rc = cuda_build.lib("tb_walk").tb_walk_launch(
-        tb.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), B, M, W, d_lo,
-        n_steps, packed.data_ptr(), done.data_ptr(),
-        torch.cuda.current_stream(tb.device).cuda_stream)
+    rc = cuda_build.lib("tb_walk").tb_walk_launch_branch(
+        WALK_BRANCHES[taken], tb.data_ptr(), qlen.data_ptr(),
+        tlen.data_ptr(), B, M, W, d_lo, n_steps, packed.data_ptr(),
+        done.data_ptr(), torch.cuda.current_stream(tb.device).cuda_stream)
     cuda_build.check(rc, "tb_walk launch")
     tb_walk.launches += 1
+    tb_walk.shapes.append((taken, B, M, W))
     return packed, done
 
 
 tb_walk.launches = 0
+tb_walk.shapes = []
 
 
 def reset_launch_counts() -> None:
     banded_dp.launches = 0
     banded_dp.shapes = []
     tb_walk.launches = 0
+    tb_walk.shapes = []
 
 
 # ---------------------------------------------------------------------------

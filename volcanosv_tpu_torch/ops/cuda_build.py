@@ -54,8 +54,13 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
         lib.banded_dp_error_string.argtypes = [ci]
         lib.banded_dp_error_string.restype = ctypes.c_char_p
     elif name == "tb_walk":
-        lib.tb_walk_launch.argtypes = [vp, vp, vp] + [ci] * 5 + [vp] * 3
-        lib.tb_walk_launch.restype = ci
+        lib.tb_walk_launch_branch.argtypes = \
+            [ci, vp, vp, vp] + [ci] * 5 + [vp] * 3
+        lib.tb_walk_launch_branch.restype = ci
+        lib.tb_walk_branch.argtypes = [vp, ci]
+        lib.tb_walk_branch.restype = ci
+        lib.smem_chase.argtypes = [ci, vp, vp]
+        lib.smem_chase.restype = ci
 
 
 def load_all() -> dict[str, ctypes.CDLL]:
