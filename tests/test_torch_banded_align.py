@@ -272,8 +272,7 @@ def test_walk_plain_matches_walk_device_on_hard_walks(source, cut):
         ops = port._unpack_ops(port.tb_walk_plain(
             tb_port, _t(qlen, np.int32), _t(tlen, np.int32), d_lo,
             full)[0].numpy())
-        moved = ops != 3
-        lengths = np.where(moved.any(0), full - np.argmax(moved[::-1], 0), 0)
+        lengths = port.walk_lengths(ops)
         steps = max(4, int(np.median(lengths)) // 4 * 4)
     got, done = port.tb_walk_plain(tb_port, _t(qlen, np.int32),
                                    _t(tlen, np.int32), d_lo, steps)

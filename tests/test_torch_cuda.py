@@ -182,11 +182,8 @@ def _gappy_pairs(rng, B, M, W, d_lo, max_gap):
 
 
 def _walk_lengths(packed):
-    """Steps each walk took until done (the last op that is not "none")."""
-    ops = ba._unpack_ops(packed.cpu().numpy())
-    moved = ops != 3
-    return np.where(moved.any(0),
-                    ops.shape[0] - np.argmax(moved[::-1], 0), 0)
+    """Steps each walk took until done."""
+    return ba.walk_lengths(ba._unpack_ops(packed.cpu().numpy()))
 
 
 def _check_walk(tb, qlen, tlen, d_lo, step_bounds):
@@ -296,15 +293,14 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         ba.tb_walk(torch.zeros((2, 8, 64), dtype=torch.uint8, device=cuda),
                    ln, ln, -32, 6)                               # not 4k steps
-    with pytest.raises(ValueError):                          # warp: W % 32
-        ba.tb_walk(torch.zeros((2, 8, 40), dtype=torch.uint8, device=cuda),
-                   ln, ln, -20, 64, branch="warp")
+    for br in ("auto", "warp", "thread"):                     # W % 32
+        with pytest.raises(ValueError):
+            ba.tb_walk(torch.zeros((2, 8, 40), dtype=torch.uint8,
+                                   device=cuda), ln, ln, -20, 64, branch=br)
+    with pytest.raises(ValueError):                          # misaligned tb
+        ba.tb_walk(torch.zeros((2 * 8 * 64 + 1,), dtype=torch.uint8,
+                               device=cuda)[1:].view(2, 8, 64),
+                   ln, ln, -32, 64)
     with pytest.raises(ValueError):
         ba.tb_walk(torch.zeros((2, 8, 64), dtype=torch.uint8, device=cuda),
                    ln, ln, -32, 64, branch="block")
-    # a band the warp design cannot stage takes the thread design
-    tb = torch.zeros((2, 8, 40), dtype=torch.uint8, device=cuda)
-    assert ba.tb_walk_branch(tb) == "thread"
-    pk, dk = ba.tb_walk(tb, ln, ln, -20, 64)
-    pp, dp = ba.tb_walk_plain(tb, ln, ln, -20, 64)
-    assert torch.equal(pk, pp) and torch.equal(dk, dp)

@@ -45,9 +45,7 @@
 //   small batch spreads over as many SMs as it has alignments; four above.
 // * tb_walk_kernel: a thread per alignment, every step a 1-byte load from
 //   device memory, all n_steps steps run.  Kept so that the two designs
-//   can be timed against each other; the launcher takes it only for a
-//   band the warp design's windows do not fit (W % 32 != 0) or a
-//   traceback that is not 16-byte aligned.
+//   can be timed against each other; no caller takes it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -394,12 +392,6 @@ int launch_warp_win(const uint8_t* tb, const int* qlen, const int* tlen,
   return (int)cudaGetLastError();
 }
 
-// The warp design stages 16-byte pieces of the traceback in windows of
-// 32 (W = 32) or 64 bytes.
-bool warp_fits(const void* tb, int W) {
-  return W % 32 == 0 && reinterpret_cast<uintptr_t>(tb) % 16 == 0;
-}
-
 // ---------------------------------------------------------------------------
 // the load-to-use latency of shared memory: one warp chasing pointers
 // ---------------------------------------------------------------------------
@@ -438,16 +430,11 @@ __global__ void smem_chase_kernel(int n, long long* out) {
 
 }  // namespace
 
-// The design tb_walk_launch_branch takes with branch 0 for a traceback at
-// tb with band W: 1 = a warp per alignment, 2 = a thread per alignment.
-extern "C" int tb_walk_branch(const void* tb, int W) {
-  return warp_fits(tb, W) ? BRANCH_WARP : BRANCH_THREAD;
-}
-
-// The walk of B alignments on `stream`: branch 0 = the design
-// tb_walk_branch picks, 1 = a warp per alignment (W % 32 == 0 and tb
-// 16-byte aligned only), 2 = a thread per alignment.  Returns the
-// cudaError_t of the launch.
+// The walk of B alignments on `stream`: branch 1 = a warp per alignment
+// (the caller ensures W % 32 == 0 and a 16-byte aligned tb: the design
+// stages 16-byte pieces of the traceback in windows of 32 (W = 32) or 64
+// bytes), 2 = a thread per alignment.  Returns the cudaError_t of the
+// launch.
 extern "C" int tb_walk_launch_branch(int branch, const void* tb,
                                      const void* qlen, const void* tlen,
                                      int B, int M, int W, int d_lo,
@@ -455,10 +442,7 @@ extern "C" int tb_walk_launch_branch(int branch, const void* tb,
                                      void* stream) {
   if (B <= 0 || M <= 0 || W <= 0 || n_steps <= 0 || (n_steps & 3) != 0)
     return (int)cudaErrorInvalidValue;
-  if (branch == 0) branch = tb_walk_branch(tb, W);
   if (branch != BRANCH_WARP && branch != BRANCH_THREAD)
-    return (int)cudaErrorInvalidValue;
-  if (branch == BRANCH_WARP && !warp_fits(tb, W))
     return (int)cudaErrorInvalidValue;
   const uint8_t* t = static_cast<const uint8_t*>(tb);
   const int* ql = static_cast<const int*>(qlen);

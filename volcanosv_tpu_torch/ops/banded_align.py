@@ -359,19 +359,10 @@ def tb_walk_plain(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
 
 
 # the walk kernel's two designs (csrc/tb_walk.cu): "warp", a warp per
-# alignment walking tiles of the traceback staged in shared memory;
-# "thread", a thread per alignment reading the traceback in device memory
-WALK_BRANCHES = {"auto": 0, "warp": 1, "thread": 2}
-
-
-def tb_walk_branch(tb: torch.Tensor) -> str:
-    """The design the CUDA kernel takes for this traceback: "warp" where
-    W % 32 == 0 and tb is 16-byte aligned (every traceback banded_dp
-    writes), else "thread"."""
-    from . import cuda_build
-    code = cuda_build.lib("tb_walk").tb_walk_branch(tb.data_ptr(),
-                                                    tb.shape[2])
-    return {v: k for k, v in WALK_BRANCHES.items()}[code]
+# alignment walking tiles of the traceback staged in shared memory, the
+# design of every caller ("auto"); "thread", a thread per alignment reading
+# the traceback in device memory, kept for timing
+WALK_BRANCHES = {"auto": 1, "warp": 1, "thread": 2}
 
 
 def tb_walk(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
@@ -379,9 +370,10 @@ def tb_walk(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
     """The walk on tb's device: the CUDA kernel for CUDA tensors, launched
     on the current stream right behind the DP; `tb_walk_plain` for CPU
     tensors.  Same arguments and returns as `tb_walk_plain`.  `branch`
-    forces one of the kernel's designs (WALK_BRANCHES; "auto" lets the
-    launcher pick, as every caller of the port does).  Each launch appends
-    (design, B, M, W) to `tb_walk.shapes`."""
+    forces one of the kernel's designs (WALK_BRANCHES; "auto" is the warp
+    design).  On CUDA, W must be a multiple of 32 and tb 16-byte aligned,
+    as every traceback banded_dp writes is.  Each launch appends (design,
+    B, M, W) to `tb_walk.shapes`."""
     if branch not in WALK_BRANCHES:
         raise ValueError(f"tb_walk: unknown branch {branch!r}")
     if tb.device.type == "cpu":
@@ -398,10 +390,10 @@ def tb_walk(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
             raise ValueError(f"tb_walk: {name} must be a contiguous {dt} "
                              f"tensor on {tb.device}")
     B, M, W = tb.shape
-    taken = tb_walk_branch(tb) if branch == "auto" else branch
-    if taken == "warp" and (W % 32 or tb.data_ptr() % 16):
-        raise ValueError(f"tb_walk: the warp design needs W % 32 == 0 and "
-                         f"a 16-byte aligned traceback (W={W})")
+    if W % 32 or tb.data_ptr() % 16:
+        raise ValueError(f"tb_walk: W={W} must be a multiple of 32 and the "
+                         "traceback 16-byte aligned on CUDA")
+    taken = "warp" if branch == "auto" else branch
     packed = torch.empty((n_steps // 4, B), dtype=torch.uint8,
                          device=tb.device)
     done = torch.empty(B, dtype=torch.bool, device=tb.device)
@@ -435,6 +427,13 @@ def _unpack_ops(packed: np.ndarray) -> np.ndarray:
     shifts = np.array([0, 2, 4, 6], np.uint8)
     return ((packed[:, None, :] >> shifts[None, :, None]) & 3).reshape(
         -1, packed.shape[1])
+
+
+def walk_lengths(ops: np.ndarray) -> np.ndarray:
+    """(n_steps, B) op codes → the steps each walk takes before it is done
+    (through its last op that is not "none")."""
+    moved = ops != 3
+    return np.where(moved.any(0), ops.shape[0] - np.argmax(moved[::-1], 0), 0)
 
 
 def _rle_columns(ops: np.ndarray, n_cols: int) -> list[list[tuple[int, int]]]:

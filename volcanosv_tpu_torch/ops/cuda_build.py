@@ -57,8 +57,6 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
         lib.tb_walk_launch_branch.argtypes = \
             [ci, vp, vp, vp] + [ci] * 5 + [vp] * 3
         lib.tb_walk_launch_branch.restype = ci
-        lib.tb_walk_branch.argtypes = [vp, ci]
-        lib.tb_walk_branch.restype = ci
         lib.smem_chase.argtypes = [ci, vp, vp]
         lib.smem_chase.restype = ci
 
