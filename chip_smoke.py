@@ -13,16 +13,20 @@ Phase 1  each kernel against its plain PyTorch version on the card, at the
          traceback bytes (rows < qlen) bit-equal, packed walk streams and
          done flags bit-equal (at the bucketed step bound and at a bound
          that cuts about half the walks short), decoded CIGARs equal.
-         Where both of banded_dp's designs take the band (W <= 512: a warp
-         per alignment, or a block per alignment) both are checked and
-         timed, in turns (block, warp, warp, block); tb_walk's two designs
+         banded_dp's design of the band (a warp per alignment at W <= 512,
+         W/512 warps per alignment above; the wide bands are those of
+         edit_sim_batch's length buckets, half the pairs unrelated) and the
+         block-per-alignment design are both checked and timed, in turns
+         (block, warp or group, warp or group, block); tb_walk's two designs
          (a warp per alignment over tiles in shared memory, or a thread
          per alignment) likewise (thread, warp, warp, thread).  Kernel
          times are device time per launch of a queue of launches held
          behind a sleep kernel, so that the host's launch cost is not
          timed; the plain versions: their one checked call.  Each row
          gives the design the launcher picks, GCUPS = B*M*W / time (DP),
-         the bound (`_dp_bound`, `_walk_bound`) and the share of it.  A
+         the bound (`_dp_bound`, `_walk_bound`: one yardstick for every
+         design, the DP's counted on the band cells inside the matrix) and
+         the share of it.  A
          walk row adds `chain_ms`: the longest walk's steps times the
          card's shared-memory load-to-use latency, measured once by one
          warp chasing pointers through shared memory (the floor of any
@@ -33,11 +37,17 @@ Phase 2  `vc-large-indel` through the port's CLI with `--device cuda` on a
          have launched in that run (with the default seed: 17 and 15
          times), and the port's `eval` must
          give recall and precision >= 0.85 against the implanted truth.
-         The (mode, B, M, W) of every banded_dp launch and the (design, B,
-         M, W) of every tb_walk launch are listed.  A user's unit is a
-         whole chromosome (50-250 Mb); 10 Mb only fits the run's time
-         limit.  With --profile the run is traced with torch.profiler and
-         the device time by kernel is printed.
+         The (mode, design, B, M, W) of every banded_dp launch and the
+         (design, B, M, W) of every tb_walk launch are listed.  A user's
+         unit is a whole chromosome (50-250 Mb); 10 Mb only fits the run's
+         time limit.  With --profile the run is traced with torch.profiler
+         and the device time by kernel is printed.
+Phase 2b the port's `eval` of phase 2's calls against a truth VCF with the
+         inserted sequences in ALT, so that the ALT-sequence gate runs the
+         edit-distance DP on every INS pair (W = 128 ... 2048 by length
+         bucket), on the card and on the CPU: equal results, recall and
+         precision >= 0.85, and the W/512-warp design launched (its count
+         is the `banded_dp_group` entry's `launches`).
 Phase 3  the same CLI on a 200 kb case with `--device cuda` and with
          `--device cpu` (the plain versions): the two VCFs must be
          byte-identical.
@@ -76,9 +86,17 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # traceback adds the E-open, up, F-open (an add and a compare) and left
 # tests and two to merge them into the byte (7).  Dual-affine adds E2, its
 # prefix F2 and their maxes and mask (9), and with a traceback their four
-# tests and one merge (7).  Edit distance is affine with unit costs.
-DP_OPS_PER_CELL = {(False, False): 13, (False, True): 20,
-                   (True, False): 22, (True, True): 36}
+# tests and one merge (7).  Edit distance (go = 0, one gap class), the least
+# its recurrence needs (5): the match compare and the add of the
+# substitution to H_diag (2); E = H_up + ge, since E_up never exceeds H_up
+# (1); Htmp = max(H_diag + sub, E) (1); in the space H - ge*l (lane l), F is
+# the exclusive running max of Htmp and H = max(Htmp, F) the inclusive one,
+# one max for both (1); cells outside the matrix are not counted, so no
+# mask.  Its traceback adds the up, F-open (an add and a compare) and left
+# tests and the merge (6; E always opens).
+DP_OPS_PER_CELL = {("edit", False): 5, ("edit", True): 11,
+                   ("affine", False): 13, ("affine", True): 20,
+                   ("dual", False): 22, ("dual", True): 36}
 # int32 operations of one walk step, counted from the least a step needs
 # (the table-driven step of csrc/tb_walk.cu): the hold test, the choice
 # bits against the state's (an and, a compare: 2), the move's select (1),
@@ -148,18 +166,38 @@ def _bound(n_bytes: float, n_ops: float) -> dict:
                 bytes=int(n_bytes), ops=int(n_ops))
 
 
-def _dp_bound(qlen, tlen, M: int, W: int, B: int, dual: bool, tb: bool,
+def _dp_kind(scores) -> str:
+    """The row of DP_OPS_PER_CELL: edit (go = 0, one gap class), affine or
+    dual."""
+    if scores.dual:
+        return "dual"
+    return "edit" if scores.gap_open == 0 else "affine"
+
+
+def _dp_bound(qlen, tlen, M: int, W: int, d_lo: int, kind: str, tb: bool,
               row0: bool) -> dict:
-    """Bound of one banded_dp call on these inputs: the cells of rows <
-    qlen; each query and target byte read once, the lengths, the outputs
-    (score, end column, the traceback of rows < qlen, the row-0 profile)
-    written once."""
+    """Bound of one banded_dp call on these inputs, the same yardstick for
+    every design.  Operations: the band cells inside the matrix (rows <
+    qlen, 0 <= j < tlen), the function's least work, which a design may
+    skip.  Bytes: each query and target byte read once, the lengths, the
+    outputs (score, end column, the traceback of rows < qlen, the row-0
+    profile) written once."""
     import numpy as np
-    rows = np.minimum(np.maximum(np.asarray(qlen, np.int64), 0), M)
-    cells = int(rows.sum()) * W
-    n_bytes = rows.sum() + np.asarray(tlen, np.int64).sum() + 16 * B \
-        + (cells if tb else 0) + (4 * M * B if row0 else 0)
-    return _bound(n_bytes, cells * DP_OPS_PER_CELL[(dual, tb)])
+    ql = np.asarray(qlen, np.int64)
+    tl = np.asarray(tlen, np.int64)
+    B = len(ql)
+    rows = np.minimum(np.maximum(ql, 0), M)
+    i = np.arange(M, dtype=np.int64)
+    j_lo = np.maximum(0, -(i + d_lo))                         # first lane j >= 0
+    cells = 0
+    for s in range(0, B, 256):
+        hi = np.minimum(W, tl[s:s + 256, None] - i - d_lo)    # lanes j < tlen
+        n = np.maximum(hi - j_lo, 0) * (i < rows[s:s + 256, None])
+        cells += int(n.sum())
+    n_bytes = rows.sum() + tl.sum() + 16 * B \
+        + (int(rows.sum()) * W if tb else 0) + (4 * M * B if row0 else 0)
+    return dict(_bound(n_bytes, cells * DP_OPS_PER_CELL[(kind, tb)]),
+                cells=cells)
 
 
 def _walk_bound(ops, n_steps: int, B: int) -> dict:
@@ -172,10 +210,12 @@ def _walk_bound(ops, n_steps: int, B: int) -> dict:
     return _bound(n_bytes, steps * WALK_OPS_PER_STEP)
 
 
-def _pairs(rng, B: int, M: int, W: int, d_lo: int):
+def _pairs(rng, B: int, M: int, W: int, d_lo: int, unrelated=False):
     """Seeded alignment inputs in the style of tests/test_pallas_dp.py::_case:
     target = query with ~3% substitutions and ~1% 1-3 bp indels, lengths
-    kept inside the band ((tlen - qlen) - d_lo < W)."""
+    kept inside the band ((tlen - qlen) - d_lo < W).  With `unrelated`,
+    every second pair is two unrelated sequences of lengths within 2x of
+    each other, as edit_sim_batch receives them (scores far below zero)."""
     import numpy as np
     q = rng.integers(0, 4, (B, M), dtype=np.int8)
     t = np.full((B, M + W), 4, dtype=np.int8)
@@ -183,6 +223,13 @@ def _pairs(rng, B: int, M: int, W: int, d_lo: int):
     tlen = np.zeros(B, np.int32)
     for b in range(B):
         ql = M - int(rng.integers(0, 8))
+        if unrelated and b % 2:
+            tl = int(rng.integers(max(1, ql + d_lo + 1, ql // 2),
+                                  min(ql + d_lo + W - 1, 2 * ql) + 1))
+            t[b, :tl] = rng.integers(0, 4, tl)
+            q[b, ql:] = 4
+            qlen[b], tlen[b] = ql, tl
+            continue
         seq = q[b, :ql].copy()
         sub = rng.random(ql) < 0.03
         seq[sub] = rng.integers(0, 4, int(sub.sum()))
@@ -217,25 +264,33 @@ def phase1_kernels(seed: int):
     vote = ba.Scores(match=2, mismatch=-3, gap_open=-4, gap_extend=-2)
     row0 = dict(with_traceback=False, row0_scores=True)
     score_only = dict(with_traceback=False)
-    cases = [  # mode, B, M, W, d_lo, scores, DP flags
-        ("traceback", 4096, 256, 256, -128, asm5, {}),
-        ("traceback", 256, 8192, 256, -128, asm5, {}),
-        ("row0", 1024, 1024, 128, -64, asm5, row0),
-        ("edit", 1024, 4096, 4096, -2048, ba.Scores.edit(), score_only),
-        ("dual-affine traceback", 1024, 1024, 256, -128, asm20, {}),
+    edit = ba.Scores.edit()
+    cases = [  # mode, B, M, W, d_lo, scores, DP flags, half unrelated
+        ("traceback", 4096, 256, 256, -128, asm5, {}, False),
+        ("traceback", 256, 8192, 256, -128, asm5, {}, False),
+        ("row0", 1024, 1024, 128, -64, asm5, row0, False),
+        ("edit", 1024, 4096, 4096, -2048, edit, score_only, False),
+        ("dual-affine traceback", 1024, 1024, 256, -128, asm20, {}, False),
         ("free_t_end", 256, 512, 128, -64, asm5,
-         dict(with_traceback=False, free_t_end=True)),
+         dict(with_traceback=False, free_t_end=True), False),
         # the main path's small batches, a batch that is not a multiple of
         # the warps per block, and the widest band of the warp design
-        ("traceback", 64, 256, 256, -128, asm5, {}),
-        ("traceback", 64, 1024, 256, -128, asm5, {}),
-        ("traceback", 64, 8192, 256, -128, asm5, {}),
-        ("row0", 64, 1024, 128, -64, asm5, row0),
-        ("traceback", 1001, 512, 256, -128, asm5, {}),
-        ("edit", 1024, 512, 512, -256, ba.Scores.edit(), score_only),
-        ("dual-affine traceback", 256, 512, 512, -256, asm20, {}),
+        ("traceback", 64, 256, 256, -128, asm5, {}, False),
+        ("traceback", 64, 1024, 256, -128, asm5, {}, False),
+        ("traceback", 64, 8192, 256, -128, asm5, {}, False),
+        ("row0", 64, 1024, 128, -64, asm5, row0, False),
+        ("traceback", 1001, 512, 256, -128, asm5, {}, False),
+        ("edit", 1024, 512, 512, -256, edit, score_only, False),
+        ("dual-affine traceback", 256, 512, 512, -256, asm20, {}, False),
         # the consensus vote's band (olc.py::_batched_cigars)
-        ("consensus traceback", 2048, 1024, 64, -32, vote, {}),
+        ("consensus traceback", 2048, 1024, 64, -32, vote, {}, False),
+        # the wide bands of edit_sim_batch's length buckets (L = 1024,
+        # 2048, >= 4096: W = 1024, 2048, 4096), half the pairs unrelated
+        ("edit", 64, 1024, 1024, -512, edit, score_only, True),
+        ("edit", 1024, 1024, 1024, -512, edit, score_only, True),
+        ("edit", 64, 2048, 2048, -1024, edit, score_only, True),
+        ("edit", 64, 8192, 4096, -2048, edit, score_only, True),
+        ("affine", 1024, 2048, 2048, -1024, asm5, score_only, True),
     ]
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
@@ -252,13 +307,14 @@ def phase1_kernels(seed: int):
         torch.cuda.synchronize()
         return out, s.elapsed_time(e)
 
-    for mode, B, M, W, d_lo, sc, kw in cases:
-        q, t, ql, tl = _pairs(rng, B, M, W, d_lo)
+    for mode, B, M, W, d_lo, sc, kw, unrelated in cases:
+        q, t, ql, tl = _pairs(rng, B, M, W, d_lo, unrelated)
         args = [torch.from_numpy(x).to(dev) for x in (q, t, ql, tl)]
         plain, plain_ms = timed_once(
             lambda: ba.banded_dp_plain(*args, W, d_lo, sc, **kw))
         rows = torch.arange(M, device=dev)[None, :] < args[2][:, None]
-        branches = ["block", "warp"] if W <= 512 else ["block"]
+        taken = ba.banded_dp_branch(W)          # "warp" or "group"
+        branches = ["block", taken]
         err = 0
         for br in branches + ["auto"]:
             kern = ba.banded_dp(*args, W, d_lo, sc, **kw, branch=br)
@@ -278,13 +334,12 @@ def phase1_kernels(seed: int):
         for br in branches + branches[::-1]:
             times[br].append(_time_queued_ms(lambda: ba.banded_dp(
                 *args, W, d_lo, sc, **kw, branch=br)))
-        taken = ba.banded_dp_branch(W)
         ms = statistics.mean(times[taken])
-        bound = _dp_bound(ql, tl, M, W, B, sc.dual,
+        bound = _dp_bound(ql, tl, M, W, d_lo, _dp_kind(sc),
                           kw.get("with_traceback", True),
                           kw.get("row0_scores", False))
-        row = dict(mode=mode, B=B, M=M, W=W, d_lo=d_lo, branch=taken,
-                   max_abs_err=err, ms=ms,
+        row = dict(mode=mode, B=B, M=M, W=W, d_lo=d_lo, unrelated=unrelated,
+                   branch=taken, max_abs_err=err, ms=ms,
                    ms_by_branch={br: statistics.mean(v)
                                  for br, v in times.items()},
                    plain_ms=plain_ms, gcups=B * M * W / ms / 1e6,
@@ -354,7 +409,9 @@ def phase1_kernels(seed: int):
 
 def _write_case(d: str, seed: int, length: int, n_del: int, n_ins: int):
     """Simulate one chromosome with the port's `sim` and write ref, contigs,
-    reads and the truth VCF under d."""
+    reads and two truth VCFs under d: `truth.vcf` with symbolic ALTs, and
+    `truth_seq.vcf` with the sequences (REF = the anchor base and the
+    deleted bases, ALT = the anchor base and the inserted ones)."""
     import numpy as np
 
     from volcanosv_tpu_torch import sim
@@ -372,14 +429,22 @@ def _write_case(d: str, seed: int, length: int, n_del: int, n_ins: int):
     write_fasta(os.path.join(d, "contigs.fa"), contigs)
     write_fastq(os.path.join(d, "reads.fastq"),
                 ((n, s, None) for n, s, *_ in reads))
-    recs = [VcfRecord(
-        chrom=t.chrom, pos=t.pos + 1, id=f"truth-{i}", ref="N",
-        alt=f"<{t.svtype}>",
-        gt="1|1" if t.gt == (1, 1) else ("1|0" if t.gt[0] else "0|1"),
-        info={"SVTYPE": t.svtype, "SVLEN": t.svlen,
-              "END": t.pos + 1 + t.svlen}) for i, t in enumerate(truth)]
-    write_vcf(os.path.join(d, "truth.vcf"),
-              make_header({c: len(s) for c, s in ref.items()}), recs)
+    def alleles(t):
+        anchor = ref[t.chrom][t.pos]
+        if t.svtype == "INS":
+            return anchor, anchor + t.seq
+        return ref[t.chrom][t.pos:t.pos + 1 + t.svlen], anchor
+
+    header = make_header({c: len(s) for c, s in ref.items()})
+    for name, resolved in (("truth.vcf", False), ("truth_seq.vcf", True)):
+        recs = [VcfRecord(
+            chrom=t.chrom, pos=t.pos + 1, id=f"truth-{i}",
+            ref=alleles(t)[0] if resolved else "N",
+            alt=alleles(t)[1] if resolved else f"<{t.svtype}>",
+            gt="1|1" if t.gt == (1, 1) else ("1|0" if t.gt[0] else "0|1"),
+            info={"SVTYPE": t.svtype, "SVLEN": t.svlen,
+                  "END": t.pos + 1 + t.svlen}) for i, t in enumerate(truth)]
+        write_vcf(os.path.join(d, name), header, recs)
     return len(contigs), len(reads)
 
 
@@ -440,9 +505,7 @@ def phase2_slice(seed: int, profile: bool):
     wall = time.perf_counter() - t0
     launches = {"banded_dp": ba.banded_dp.launches,
                 "tb_walk": ba.tb_walk.launches}
-    dp_shapes = [dict(mode=m, B=B, M=M, W=W,
-                      branch=ba.banded_dp_branch(W), count=n)
-                 for (m, B, M, W), n in Counter(ba.banded_dp.shapes).items()]
+    dp_shapes = _dp_shapes(ba.banded_dp.shapes)
     walk_shapes = [dict(branch=br, B=B, M=M, W=W, count=n)
                    for (br, B, M, W), n in Counter(ba.tb_walk.shapes).items()]
     if rc != 0:
@@ -472,6 +535,51 @@ def phase2_slice(seed: int, profile: bool):
                           stages=stages, launches=launches,
                           banded_dp_shapes=dp_shapes,
                           tb_walk_shapes=walk_shapes, profile=profile_info)
+
+
+def _dp_shapes(shapes) -> list[dict]:
+    """banded_dp launches by (mode, design, B, M, W), with their count."""
+    from collections import Counter
+    return [dict(mode=m, branch=br, B=B, M=M, W=W, count=n)
+            for (m, br, B, M, W), n in Counter(shapes).items()]
+
+
+def phase2b_eval_alt() -> dict:
+    """The port's `eval` of phase 2's calls against the sequence-resolved
+    truth: the ALT-sequence gate (pctsim) sends every INS pair through
+    edit_sim_batch, one launch per length bucket (W = 128 ... 2048).  Run on
+    the card and on the CPU (the plain DP); the results must be equal and
+    the group design must have launched (W > 512)."""
+    import torch
+
+    from volcanosv_tpu_torch.eval import EvalParams, evaluate_files
+    from volcanosv_tpu_torch.ops import banded_align as ba
+    d = os.path.join(WORK, "slice")
+    files = (os.path.join(d, "truth_seq.vcf"),
+             os.path.join(d, "out", "volcanosv_large_indel.vcf"))
+    ba.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = evaluate_files(*files, EvalParams(), device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t0
+    shapes = _dp_shapes(ba.banded_dp.shapes)
+    launches = {"banded_dp": ba.banded_dp.launches,
+                "group": sum(r["count"] for r in shapes
+                             if r["branch"] == "group")}
+    t0 = time.perf_counter()
+    res_cpu = evaluate_files(*files, EvalParams(), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    info = dict(eval=res.summary(), launches=launches,
+                banded_dp_shapes=shapes, cuda_s=cuda_s, cpu_s=cpu_s)
+    _log(f"phase 2b: eval with ALT sequences {json.dumps(info)}")
+    if (res.summary(), res.matches) != (res_cpu.summary(), res_cpu.matches):
+        raise AssertionError(f"phase 2b: cuda eval {res.summary()} != cpu "
+                             f"eval {res_cpu.summary()}")
+    if launches["group"] <= 0:
+        raise AssertionError("phase 2b: no banded_dp launch at W > 512")
+    if res.recall < 0.85 or res.precision < 0.85:
+        raise AssertionError(f"phase 2b: accuracy gate failed: {info}")
+    return info
 
 
 def phase3_cuda_vs_cpu(seed: int) -> None:
@@ -525,19 +633,34 @@ def main() -> int:
 
     dp_rows, walk_rows, smem = phase1_kernels(args.seed)
     launches, slice_info = phase2_slice(args.seed, args.profile)
+    slice_info["eval_alt"] = phase2b_eval_alt()
     phase3_cuda_vs_cpu(args.seed)
 
-    head_dp, head_walk = dp_rows[0], walk_rows[0]   # traceback, B=4096, M=256
+    warp_rows = [r for r in dp_rows if r["branch"] == "warp"]
+    group_rows = [r for r in dp_rows if r["branch"] == "group"]
+    # heads: traceback B=4096 M=256 W=256; edit B=1024 M=4096 W=4096
+    head_dp, head_walk = warp_rows[0], walk_rows[0]
+    head_group = group_rows[0]
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
         dict(name="banded_dp", route="cuda",
              source="volcanosv_tpu_torch/csrc/banded_dp.cu",
              replaces="volcanosv_tpu/ops/pallas/banded_dp.py:46",
-             launches=launches["banded_dp"],
-             max_abs_err=max(r["max_abs_err"] for r in dp_rows),
+             design="warp (W <= 512)", launches=launches["banded_dp"],
+             max_abs_err=max(r["max_abs_err"] for r in warp_rows),
              ms=head_dp["ms"], plain_ms=head_dp["plain_ms"],
              bound_ms=head_dp["bound_ms"], bound_by=head_dp["bound_by"],
-             library_ms=None, shapes=dp_rows),
+             library_ms=None, shapes=warp_rows),
+        dict(name="banded_dp_group", route="cuda",
+             source="volcanosv_tpu_torch/csrc/banded_dp.cu",
+             replaces="volcanosv_tpu/ops/pallas/banded_dp.py:46",
+             design="group (W > 512)", path="eval with ALT sequences",
+             launches=slice_info["eval_alt"]["launches"]["group"],
+             max_abs_err=max(r["max_abs_err"] for r in group_rows),
+             ms=head_group["ms"], plain_ms=head_group["plain_ms"],
+             bound_ms=head_group["bound_ms"],
+             bound_by=head_group["bound_by"], library_ms=None,
+             shapes=group_rows),
         dict(name="tb_walk", route="cuda",
              source="volcanosv_tpu_torch/csrc/tb_walk.cu",
              replaces="volcanosv_tpu/ops/banded_align.py:291",

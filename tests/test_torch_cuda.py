@@ -5,9 +5,11 @@ without them:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Band widths cover the path's range (32 … 4096), every DP mode, both of the
-kernel's designs where both take the band (W <= 512: a warp per alignment,
-or a block), batches of 1 to 517 alignments, and the walk; integer outputs
+Band widths cover the path's range (32 … 4096), every DP mode, each of the
+kernel's designs that takes the band (a warp per alignment at W <= 512,
+W/512 warps per alignment above, a block per alignment at every W), "auto",
+batches of 1 to 517 alignments (half of them unrelated pairs at W > 512),
+and the walk; integer outputs
 and the traceback bytes of rows < qlen must be bit-equal (tolerance 0).
 The walk's two designs (a warp per alignment over tiles staged in shared
 memory, or a thread per alignment) are held to the plain walk on DP
@@ -62,14 +64,15 @@ def _pairs(rng, B, M, W, d_lo):
     return q, t, qlen, tlen
 
 
-def _check_against_plain(cuda, args, M, W, d_lo, mode):
-    """Every design that takes W against the plain version: scores, end
-    columns, row0 and traceback bytes of rows < qlen; then the walk over
-    the kernel's traceback against the plain walk over the plain one."""
-    kw, sc = MODES[mode]
+def _check_against_plain(cuda, args, M, W, d_lo, kw, sc):
+    """Every design that takes W against the plain version (DP flags kw,
+    scores sc): scores, end columns, row0 and traceback bytes of rows <
+    qlen; then the walk over the kernel's traceback against the plain walk
+    over the plain one."""
     p = ba.banded_dp_plain(*args, W, d_lo, sc, **kw)
     rows = torch.arange(M, device=cuda)[None, :] < args[2][:, None]   # (B, M)
-    branches = ["auto", "warp", "block"] if W <= 512 else ["auto", "block"]
+    taken = "warp" if W <= 512 else "group"
+    branches = ["auto", taken, "block"]
     ba.reset_launch_counts()
     for br in branches:
         k = ba.banded_dp(*args, W, d_lo, sc, **kw, branch=br)
@@ -82,9 +85,11 @@ def _check_against_plain(cuda, args, M, W, d_lo, mode):
         if br == "auto":
             auto = k
     assert ba.banded_dp.launches == len(branches) == len(ba.banded_dp.shapes)
-    assert ba.banded_dp.shapes[0] == (
-        ba.dp_mode(sc, **kw), args[0].shape[0], M, W)
-    if auto[2] is not None and mode != "free_t_start":
+    assert ba.banded_dp_branch(W) == taken
+    assert ba.banded_dp.shapes == [
+        (ba.dp_mode(sc, **kw), br, args[0].shape[0], M, W)
+        for br in [taken] + branches[1:]]
+    if auto[2] is not None and not kw.get("free_t_start"):
         qlen, tlen = args[2].cpu().numpy(), args[3].cpu().numpy()
         n_steps, full = ba.walk_steps(M, W, qlen, tlen)
         for steps in (n_steps, full):
@@ -102,7 +107,7 @@ def test_banded_dp_kernel_matches_plain(cuda, W, mode, B):
     d_lo, M = -(W // 2), 192
     q, t, qlen, tlen = _pairs(np.random.default_rng(W + B), B, M, W, d_lo)
     args = [torch.from_numpy(x).to(cuda) for x in (q, t, qlen, tlen)]
-    _check_against_plain(cuda, args, M, W, d_lo, mode)
+    _check_against_plain(cuda, args, M, W, d_lo, *MODES[mode])
 
 
 @pytest.mark.cuda
@@ -122,7 +127,46 @@ def test_banded_dp_edges_match_plain(cuda, W, mode):
         qlen[b] = ql
         tlen[b] = (lo, hi, (lo + hi) // 2)[(b // 4) % 3]
     args = [torch.from_numpy(x).to(cuda) for x in (q, t, qlen, tlen)]
-    _check_against_plain(cuda, args, M, W, d_lo, mode)
+    _check_against_plain(cuda, args, M, W, d_lo, *MODES[mode])
+
+
+# the score-only modes a wide band (W > 512) serves
+WIDE_MODES = {
+    "edit": (dict(with_traceback=False), ba.Scores.edit()),
+    "affine": (dict(with_traceback=False), ba.Scores()),
+    "dual_affine": (dict(with_traceback=False), DUAL),
+    "free_t_end": (dict(with_traceback=False, free_t_end=True), ba.Scores()),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 37, 64, 517])
+@pytest.mark.parametrize("W", [1024, 2048, 4096])
+@pytest.mark.parametrize("mode", list(WIDE_MODES))
+def test_banded_dp_wide_bands_match_plain(cuda, W, mode, B):
+    """The group design (W/512 warps per alignment), "auto" and the block
+    design at the wide bands: half the pairs unrelated sequences of lengths
+    within 2x of each other (scores far below zero, as edit_sim_batch sends
+    them), qlen 0, 1 and M, tlen at both edges of the band and inside it."""
+    d_lo, M = -(W // 2), 640
+    rng = np.random.default_rng(W + B + 1)
+    q, t, qlen, tlen = _pairs(rng, B, M, W, d_lo)
+    for b in range(B):
+        ql = (int(qlen[b]), 0, 1, M)[b % 4]
+        lo, hi = max(0, ql + d_lo), ql + d_lo + W - 1
+        if b % 2 == 0 and ql > 1:                 # unrelated, within 2x
+            tl = int(rng.integers(max(lo, ql // 2), min(hi, 2 * ql) + 1))
+            t[b] = rng.integers(0, 4, t.shape[1])
+        else:
+            tl = (lo, hi, (lo + hi) // 2, int(tlen[b]))[(b // 4) % 4]
+            tl = min(max(tl, lo), hi)
+            pad = t[b] == 4
+            t[b, pad] = rng.integers(0, 4, int(pad.sum()))
+        t[b, tl:] = 4
+        q[b, ql:] = 4
+        qlen[b], tlen[b] = ql, tl
+    args = [torch.from_numpy(x).to(cuda) for x in (q, t, qlen, tlen)]
+    _check_against_plain(cuda, args, M, W, d_lo, *WIDE_MODES[mode])
 
 
 @pytest.mark.cuda
@@ -290,6 +334,10 @@ def test_wrappers_reject_bad_inputs(cuda):
         ba.banded_dp(q, q, ln.long(), ln, 64, -32, ba.Scores())
     with pytest.raises(ValueError):                          # warp: W <= 512
         ba.banded_dp(q, q, ln, ln, 1024, -512, ba.Scores(), branch="warp")
+    for W in (32, 512):                                      # group: W > 512
+        with pytest.raises(ValueError):
+            ba.banded_dp(q, q, ln, ln, W, -(W // 2), ba.Scores.edit(),
+                         branch="group")
     with pytest.raises(ValueError):
         ba.tb_walk(torch.zeros((2, 8, 64), dtype=torch.uint8, device=cuda),
                    ln, ln, -32, 6)                               # not 4k steps

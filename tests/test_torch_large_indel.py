@@ -121,3 +121,27 @@ def test_edit_distance_batches_match():
                                                           device="cpu"),
                                   ref_red.edit_sim_batch(pairs))
 
+
+def test_edit_distance_wide_bands_match():
+    """The length buckets L = 1024 and 2048 (band widths 1024 and 2048):
+    similar pairs, and unrelated random pairs whose lengths are within 2x
+    of each other."""
+    rng = np.random.default_rng(8)
+    bases = np.array(list("ACGT"))
+    pairs = []
+    for n in (600, 1000, 1300, 2000):
+        a = rng.choice(bases, n)
+        b = a.copy()
+        b[rng.random(n) < 0.05] = rng.choice(bases)
+        b = np.delete(b, rng.integers(0, n, n // 50))
+        pairs.append(("".join(a), "".join(b)))
+        m = int(rng.integers(n // 2 + 1, n + 1))
+        pairs.append(("".join(rng.choice(bases, n)),
+                      "".join(rng.choice(bases, m))))
+    np.testing.assert_array_equal(
+        port_red.edit_distance_pairs(pairs, device="cpu"),
+        ref_red.edit_distance_pairs(pairs))
+    np.testing.assert_array_equal(port_red.edit_sim_batch(pairs,
+                                                          device="cpu"),
+                                  ref_red.edit_sim_batch(pairs))
+

@@ -24,7 +24,8 @@
 // outweigh the bytes four- to sevenfold.  The row
 // recurrence is sequential, so each alignment walks its M rows in order and
 // the latency of one row (the lane-crossing F prefix above all) has to be
-// hidden behind other alignments.  Two designs, picked by the launcher:
+// hidden behind other alignments.  Three designs; the launcher takes the
+// warp design at W <= 512 and the group design above:
 //
 // W <= 512 (banded_dp_warp_kernel): one warp per alignment, 1 or 4 warps a
 //   block (4 once B >= 512, so that small batches still spread over the
@@ -42,14 +43,27 @@
 //   __viaddmax_s32 for the F prefix.  A thread stores its L traceback bytes
 //   of a row as one vector (1 to 16 bytes), so a warp writes each row of W
 //   bytes in one coalesced pass.
-// W > 512 (banded_dp_kernel, unchanged): one thread block per alignment,
-//   min(W, 1024) threads each owning W/blockDim contiguous lanes.  The
-//   previous row's H, E and E2 live in shared memory (one buffer: every
-//   read of row i happens before the first barrier, every write after it),
-//   sized dynamically so W = 4096 fits.  The F prefix is a warp-shuffle
-//   scan plus a pass over the per-warp totals; a row costs two block
-//   barriers.
-// Both skip rows at or past qlen (the walk never reads them; their row0
+// W = 1024, 2048, 4096 (banded_dp_group_kernel): K = W/512 warps per
+//   alignment, one alignment a block, each warp running the warp design's
+//   row code on its own 512 lanes (L = 16).  Only the K warps cross paths,
+//   through a few words of shared memory and a barrier over their 32*K
+//   threads (bar.sync 1, 32*K), twice a row: after each warp has published
+//   its F total and the Htmp of its last lane (a warp's F prefix starts
+//   from the max of the totals to its left), and after each has published
+//   lane 0 of its new row (lane l+1 of the previous row for the last lane
+//   of the warp to its left).  Each warp loads the query codes and the
+//   target codes entering its own last lane.  With go = 0 and one gap class
+//   (edit distance: Scores.edit()) E = H_up + ge exactly, since the stored
+//   E never exceeds the stored H, and E opens at every cell: the EDIT
+//   instance keeps no E registers.
+// banded_dp_kernel (PR 2's design, kept for timing as branch "block"):
+//   one thread block per alignment, min(W, 1024) threads each owning
+//   W/blockDim contiguous lanes.  The previous row's H, E and E2 live in
+//   shared memory (one buffer: every read of row i happens before the
+//   first barrier, every write after it), sized dynamically so W = 4096
+//   fits.  The F prefix is a warp-shuffle scan plus a pass over the
+//   per-warp totals; a row costs two block barriers.
+// All skip rows at or past qlen (the walk never reads them; their row0
 // entries are set to NEG) and read the target before column 0 or at/after
 // tlen as code 4 (pad).
 #include <cuda_runtime.h>
@@ -306,16 +320,19 @@ int launch_r(const Params& p, bool row0, bool free_end, int threads,
 }
 
 // ---------------------------------------------------------------------------
-// W <= 512: one warp per alignment, the row in registers
+// The row in registers: one warp per alignment (W <= 512), or K warps per
+// alignment on 512 lanes each (W = 1024 ... 4096)
 // ---------------------------------------------------------------------------
 
 constexpr int WARP_W_MAX = 512;
-constexpr int BRANCH_WARP = 1, BRANCH_BLOCK = 2;
+constexpr int GROUP_L = 16;             // lanes a thread in the group design
+constexpr int BRANCH_WARP = 1, BRANCH_BLOCK = 2, BRANCH_GROUP = 3;
 
 // The design a launch takes: the warp one at every W <= 512, whatever B
-// (it was the faster at every batch size timed, B = 64 included).
+// (it was the faster at every batch size timed, B = 64 included), the group
+// one above.
 int pick_branch(int W) {
-  return W <= WARP_W_MAX ? BRANCH_WARP : BRANCH_BLOCK;
+  return W <= WARP_W_MAX ? BRANCH_WARP : BRANCH_GROUP;
 }
 
 // Warps (alignments) per block: one below B = 512, so that a small batch
@@ -354,22 +371,44 @@ __device__ __forceinline__ int t_code(const int8_t* t, int j, int tlen) {
   return (j >= 0 && j < tlen) ? (int)t[j] : 4;
 }
 
-template <int L, bool DUAL, bool TB>
-__global__ void __launch_bounds__(128)
-banded_dp_warp_kernel(Params p, int row0_on, int free_end) {
+// What the K warps of one alignment exchange in the group design.  Each
+// field is written before a barrier and read after it; the next write comes
+// after the following barrier.
+template <int K>
+struct GroupXchg {
+  int tot[K], tot2[K];     // each warp's max of Htmp - ge*l (ge2) this row
+  int edge[K];             // Htmp of each warp's last lane this row
+  int h[K], e[K], e2[K];   // each warp's lane 0 after the previous row
+  int bv[K], bl[K];        // free_t_end: each warp's best on the last row
+};
+
+// Barrier over the 32*K threads of one alignment.
+template <int K>
+__device__ __forceinline__ void group_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(32 * K) : "memory");
+}
+
+// The rows of alignment b on warp w of its K warps, L lanes a thread: lane
+// l = (32w + thread) * L + k.  K = 1 is the warp design; x is the K warps'
+// exchange (unused at K = 1).  EDIT: go = 0 and one gap class, so that
+// E = H_up + ge (see the head of the file).
+template <int L, int K, bool DUAL, bool TB, bool EDIT>
+__device__ __forceinline__ void dp_rows(const Params& p, const int b,
+                                        const int w, const int row0_on,
+                                        const int free_end,
+                                        GroupXchg<K>* x) {
   constexpr unsigned FULL = 0xffffffffu;
-  constexpr int W = 32 * L;
+  constexpr int W = 32 * L * K;
   constexpr int NW = (L + 3) / 4;       // registers of packed target codes
   const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (b >= p.B) return;                 // ragged last block: whole warps
   const int d_lo = p.d_lo;
   const int qlen = p.qlen[b];
   const int tlen = p.tlen[b];
   const int rows = min(qlen, p.M);
   const int8_t* qb = p.q + (size_t)b * p.M;
   const int8_t* tbase = p.t + (size_t)b * p.N;
-  const int l0 = lane * L;
+  const int l0 = (32 * w + lane) * L;
+  const int l_end = 32 * L * (w + 1);   // one past the warp's last lane
   const int goe = p.go + p.ge;
   const int goe2 = p.go2 + p.ge2;
 
@@ -393,18 +432,23 @@ banded_dp_warp_kernel(Params p, int row0_on, int free_end) {
     tw[k >> 2] |= (unsigned)(uint8_t)t_code(tbase, ji + 1, tlen)
                   << (8 * (k & 3));
   }
-  if (lane == 0 && !(qlen >= 1 && qlen <= p.M)) {  // no last row is reached
-    p.score[b] = NEG;
+  if (w == 0 && lane == 0 && !(qlen >= 1 && qlen <= p.M)) {
+    p.score[b] = NEG;                     // no last row is reached
     p.end_j[b] = 0;
   }
   const int lstar = min(max(tlen - qlen - d_lo, 0), W - 1);
 
-  // query codes of 32 rows, and the target code entering lane W-1 after
-  // each of them, one lane per row; the next 32 are loaded a group ahead
+  // query codes of 32 rows, and the target code entering the warp's last
+  // lane after each of them, one lane per row; the next 32 are loaded a
+  // group ahead
   int q_cur = (lane < p.M) ? (int)qb[lane] : 4;
-  int t_cur = t_code(tbase, lane + d_lo + W, tlen);
+  int t_cur = t_code(tbase, lane + d_lo + l_end, tlen);
   int q_nxt = (32 + lane < p.M) ? (int)qb[32 + lane] : 4;
-  int t_nxt = t_code(tbase, 32 + lane + d_lo + W, tlen);
+  int t_nxt = t_code(tbase, 32 + lane + d_lo + l_end, tlen);
+  if constexpr (K > 1) {
+    if (lane == 0) { x->h[w] = H[0]; x->e[w] = NEG; x->e2[w] = NEG; }
+    group_sync<K>();
+  }
 
   for (int i = 0; i < rows; ++i) {
     if ((i & 31) == 0 && i > 0) {
@@ -412,17 +456,28 @@ banded_dp_warp_kernel(Params p, int row0_on, int free_end) {
       t_cur = t_nxt;
       const int r = i + 32 + lane;
       q_nxt = (r < p.M) ? (int)qb[r] : 4;
-      t_nxt = t_code(tbase, r + d_lo + W, tlen);
+      t_nxt = t_code(tbase, r + d_lo + l_end, tlen);
     }
     const int qi = __shfl_sync(FULL, q_cur, i & 31);
     const int t_in = __shfl_sync(FULL, t_cur, i & 31);
     const int qm = (qi < 4) ? qi : INT_MAX;   // a match needs qi < 4
-    // lane l+1 of the previous row for the thread's last lane
+    // lane l+1 of the previous row for the thread's last lane: the next
+    // thread's first, the next warp's lane 0, or NEG past lane W-1
     int h_nx = __shfl_down_sync(FULL, H[0], 1);
-    int e_nx = __shfl_down_sync(FULL, E[0], 1);
-    int e2_nx = DUAL ? __shfl_down_sync(FULL, E2[0], 1) : NEG;
+    int e_nx = NEG, e2_nx = NEG;
+    if constexpr (!EDIT) e_nx = __shfl_down_sync(FULL, E[0], 1);
+    if constexpr (DUAL) e2_nx = __shfl_down_sync(FULL, E2[0], 1);
     const unsigned t_nx = __shfl_down_sync(FULL, tw[0], 1);
-    if (lane == 31) { h_nx = NEG; e_nx = NEG; e2_nx = NEG; }
+    if (lane == 31) {
+      h_nx = NEG; e_nx = NEG; e2_nx = NEG;
+      if constexpr (K > 1) {
+        if (w + 1 < K) {
+          h_nx = x->h[w + 1];
+          if constexpr (!EDIT) e_nx = x->e[w + 1];
+          if constexpr (DUAL) e2_nx = x->e2[w + 1];
+        }
+      }
+    }
 
     const int j0 = i + d_lo + l0;             // column of the thread's k = 0
     const unsigned valid = lane_range<L>(-j0, tlen - j0);
@@ -436,12 +491,15 @@ banded_dp_warp_kernel(Params p, int row0_on, int free_end) {
 #pragma unroll
     for (int k = 0; k < L; ++k) {
       const int h_up = (k + 1 < L) ? H[k + 1] : h_nx;
-      const int e_up = (k + 1 < L) ? E[k + 1] : e_nx;
       const int tc = (int)(int8_t)(tw[k >> 2] >> (8 * (k & 3)));
       const int sub = (tc == qm) ? p.match : p.mismatch;
       const bool jv = (valid >> k) & 1u;
-      bool e_opens, diag_wins;
-      const int e = __vibmax_s32(h_up + goe, e_up + p.ge, &e_opens);
+      bool e_opens = true, diag_wins;
+      int e = h_up + goe;
+      if constexpr (!EDIT) {
+        const int e_up = (k + 1 < L) ? E[k + 1] : e_nx;
+        e = __vibmax_s32(h_up + goe, e_up + p.ge, &e_opens);
+      }
       int ht = __vibmax_s32(H[k] + sub, e, &diag_wins);
       int bt = (e_opens ? TB_E_OPEN : 0) | (diag_wins ? 0 : TB_UP);
       if (DUAL) {
@@ -453,7 +511,7 @@ banded_dp_warp_kernel(Params p, int row0_on, int free_end) {
         if (!h_wins) bt = (bt & ~7) | TB_UP2;
         E2[k] = jv ? e2 : NEG;
       }
-      E[k] = jv ? e : NEG;
+      if constexpr (!EDIT) E[k] = jv ? e : NEG;
       H[k] = ht;
       bits[k] = bt;
     }
@@ -485,6 +543,24 @@ banded_dp_warp_kernel(Params p, int row0_on, int free_end) {
     int run2 = DUAL ? __shfl_up_sync(FULL, tot2, 1) : NEG;
     int h_left = __shfl_up_sync(FULL, H[L - 1], 1);   // Htmp of lane l0-1
     if (lane == 0) { run = NEG; run2 = NEG; h_left = NEG; }
+    if constexpr (K > 1) {
+      // the prefix starts from the totals of the warps to the left; lane 0
+      // takes h_left from the last lane of the warp before
+      if (lane == 31) {
+        x->tot[w] = tot;
+        if constexpr (DUAL) x->tot2[w] = tot2;
+        x->edge[w] = H[L - 1];
+      }
+      group_sync<K>();
+#pragma unroll
+      for (int v = 0; v + 1 < K; ++v) {
+        if (v < w) {
+          run = max(run, x->tot[v]);
+          if constexpr (DUAL) run2 = max(run2, x->tot2[v]);
+        }
+      }
+      if (lane == 0 && w > 0) h_left = x->edge[w - 1];
+    }
 
     // ---- H, the traceback byte, the masks ----
     unsigned tbw[NW];
@@ -513,6 +589,13 @@ banded_dp_warp_kernel(Params p, int row0_on, int free_end) {
       H[k] = ((keep >> k) & 1u) ? h : NEG;
       if (TB) tbw[k >> 2] |= (unsigned)bt << (8 * (k & 3));
     }
+    if constexpr (K > 1) {
+      if (lane == 0) {
+        x->h[w] = H[0];
+        if constexpr (!EDIT) x->e[w] = E[0];
+        if constexpr (DUAL) x->e2[w] = E2[0];
+      }
+    }
     if (TB) store_row<L>(p.tb + ((size_t)b * p.M + i) * W + l0, tbw);
     if (row0_on) {
       const int kr = -d_lo - l0;              // the thread's lane of diag 0
@@ -523,7 +606,7 @@ banded_dp_warp_kernel(Params p, int row0_on, int free_end) {
         }
       }
     }
-    if (i == qlen - 1) {                      // warp-uniform
+    if (i == qlen - 1) {                      // uniform over the K warps
       if (free_end) {
         // best value on the last row, smallest lane among ties (the
         // scan's argmax); the Pallas kernel picks the largest j instead
@@ -539,7 +622,18 @@ banded_dp_warp_kernel(Params p, int row0_on, int free_end) {
           const int ol = __shfl_down_sync(FULL, bl, off);
           if (ov > bv || (ov == bv && ol < bl)) { bv = ov; bl = ol; }
         }
-        if (lane == 0) {
+        if constexpr (K > 1) {
+          if (lane == 0) { x->bv[w] = bv; x->bl[w] = bl; }
+          group_sync<K>();
+          if (w == 0 && lane == 0) {
+#pragma unroll
+            for (int v = 1; v < K; ++v) {
+              const int ov = x->bv[v], ol = x->bl[v];
+              if (ov > bv || (ov == bv && ol < bl)) { bv = ov; bl = ol; }
+            }
+          }
+        }
+        if (w == 0 && lane == 0) {
           p.score[b] = bv;
           p.end_j[b] = i + d_lo + bl;
         }
@@ -566,12 +660,29 @@ banded_dp_warp_kernel(Params p, int row0_on, int free_end) {
     } else {
       tw[0] = (tw[0] >> 8) | (in << (8 * (L - 1)));
     }
+    if constexpr (K > 1) group_sync<K>();     // lane 0 of each warp is out
   }
   if (row0_on) {
-    for (int i = max(rows, 0) + lane; i < p.M; i += 32) {
+    for (int i = max(rows, 0) + 32 * w + lane; i < p.M; i += 32 * K) {
       p.row0[(size_t)i * p.B + b] = NEG;
     }
   }
+}
+
+template <int L, bool DUAL, bool TB>
+__global__ void __launch_bounds__(128)
+banded_dp_warp_kernel(Params p, int row0_on, int free_end) {
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= p.B) return;                 // ragged last block: whole warps
+  dp_rows<L, 1, DUAL, TB, false>(p, b, 0, row0_on, free_end, nullptr);
+}
+
+template <int K, bool DUAL, bool TB, bool EDIT>
+__global__ void __launch_bounds__(32 * K)
+banded_dp_group_kernel(Params p, int row0_on, int free_end) {
+  __shared__ GroupXchg<K> x;
+  dp_rows<GROUP_L, K, DUAL, TB, EDIT>(p, blockIdx.x, threadIdx.x >> 5,
+                                      row0_on, free_end, &x);
 }
 
 template <int L, bool DUAL, bool TB>
@@ -595,6 +706,23 @@ int launch_warp(const Params& p, int row0, int free_end, cudaStream_t s) {
   }
 }
 
+template <int K, bool DUAL, bool TB, bool EDIT>
+int launch_group_k(const Params& p, int row0, int free_end, cudaStream_t s) {
+  banded_dp_group_kernel<K, DUAL, TB, EDIT><<<p.B, 32 * K, 0, s>>>(
+      p, row0, free_end);
+  return (int)cudaGetLastError();
+}
+
+template <bool DUAL, bool TB, bool EDIT>
+int launch_group(const Params& p, int row0, int free_end, cudaStream_t s) {
+  switch (p.W) {
+    case 1024: return launch_group_k<2, DUAL, TB, EDIT>(p, row0, free_end, s);
+    case 2048: return launch_group_k<4, DUAL, TB, EDIT>(p, row0, free_end, s);
+    case 4096: return launch_group_k<8, DUAL, TB, EDIT>(p, row0, free_end, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" const char* banded_dp_error_string(int err) {
@@ -602,12 +730,12 @@ extern "C" const char* banded_dp_error_string(int err) {
 }
 
 // The design banded_dp_launch takes at band W: 1 = a warp per alignment
-// (W <= 512), 2 = a block per alignment.
+// (W <= 512), 3 = W/512 warps per alignment (W > 512).
 extern "C" int banded_dp_branch(int W) { return pick_branch(W); }
 
 // banded_dp_launch with the design forced: branch 0 = as banded_dp_launch
 // picks it, 1 = a warp per alignment (W <= 512 only), 2 = a block per
-// alignment.
+// alignment, 3 = W/512 warps per alignment (W > 512 only).
 extern "C" int banded_dp_launch_branch(
     int branch, const void* q, const void* t, const void* qlen,
     const void* tlen, int B, int M, int N, int W, int d_lo,
@@ -619,9 +747,11 @@ extern "C" int banded_dp_launch_branch(
   if (W < 32 || W > 1024 * MAXL || (W & (W - 1)) != 0 || B <= 0 || M <= 0)
     return (int)cudaErrorInvalidValue;
   if (branch == 0) branch = pick_branch(W);
-  if (branch != BRANCH_WARP && branch != BRANCH_BLOCK)
+  if (branch != BRANCH_WARP && branch != BRANCH_BLOCK &&
+      branch != BRANCH_GROUP)
     return (int)cudaErrorInvalidValue;
-  if (branch == BRANCH_WARP && W > WARP_W_MAX)
+  if ((branch == BRANCH_WARP && W > WARP_W_MAX) ||
+      (branch == BRANCH_GROUP && W <= WARP_W_MAX))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const int8_t*>(q);
@@ -644,6 +774,18 @@ extern "C" int banded_dp_launch_branch(
     }
     return with_tb ? launch_warp<false, true>(p, row0, free_t_end, s)
                    : launch_warp<false, false>(p, row0, free_t_end, s);
+  }
+  if (branch == BRANCH_GROUP) {
+    if (dual) {
+      return with_tb ? launch_group<true, true, false>(p, row0, free_t_end, s)
+                     : launch_group<true, false, false>(p, row0, free_t_end, s);
+    }
+    if (go == 0) {                      // edit distance: no E registers
+      return with_tb ? launch_group<false, true, true>(p, row0, free_t_end, s)
+                     : launch_group<false, false, true>(p, row0, free_t_end, s);
+    }
+    return with_tb ? launch_group<false, true, false>(p, row0, free_t_end, s)
+                   : launch_group<false, false, false>(p, row0, free_t_end, s);
   }
   const int threads = W < 1024 ? W : 1024;
   const size_t smem = sizeof(int) *

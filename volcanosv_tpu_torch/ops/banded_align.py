@@ -16,8 +16,9 @@ Two kernels, each with a plain PyTorch version of the same function:
 
 A wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.  Each wrapper counts its kernel
-launches in `<wrapper>.launches`; `banded_dp.shapes` lists the (mode, B, M,
-W) of each DP launch, `tb_walk.shapes` the (design, B, M, W) of each walk.
+launches in `<wrapper>.launches`; `banded_dp.shapes` lists the (mode,
+design, B, M, W) of each DP launch, `tb_walk.shapes` the (design, B, M, W)
+of each walk.
 
 The dispatchers below (`banded_align_cigars_dispatch`, `banded_row0_auto`,
 `edit_distance_batch_auto`) take numpy batches marshalled exactly as the
@@ -120,12 +121,18 @@ def banded_dp_plain(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     neg_col = torch.full((B, 1), NEG, dtype=i32, device=dev)
 
     # target window of row i = columns i+d_lo .. i+d_lo+W-1, read through a
-    # left/right pad so slicing never clips; cells outside [0, tlen) are
-    # masked to the pad code below, as the kernel reads them
+    # left/right pad so slicing never clips; target cells outside [0, tlen)
+    # or with a pad code, and query pad codes, take two values that no code
+    # takes, so that a match is one compare
     pad_l = max(0, -d_lo)
     pad_r = max(0, M + d_lo + W - t.shape[1])
     t_pad = torch.nn.functional.pad(t.to(i32), (pad_l, pad_r), value=4)
-    q32 = q.to(i32)
+    col = torch.arange(t_pad.shape[1], dtype=i32, device=dev) - pad_l
+    col_ok = (col >= 0) & (col < tl)                             # (B, N')
+    t_pad = torch.where(col_ok & (t_pad < 4), t_pad, 1000)
+    q32 = torch.where(q < 4, q.to(i32), 2000)
+    match = torch.tensor(scores.match, dtype=i32, device=dev)
+    mismatch = torch.tensor(scores.mismatch, dtype=i32, device=dev)
     ge_l = ge * lanes
     ge2_l = ge2 * lanes
     u8 = torch.uint8
@@ -138,27 +145,27 @@ def banded_dp_plain(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     l_star = (tlen - qlen - d_lo).clamp(0, W - 1).long()[:, None]
 
     for i in range(M):
-        j = i + d_lo + lanes
-        jv = (j >= 0) & (j < tl)                                   # (B, W)
-        tw = t_pad[:, i + d_lo + pad_l:i + d_lo + pad_l + W]
-        qi = q32[:, i:i + 1]
-        is_match = (qi == tw) & (qi < 4) & (tw < 4) & jv
-        sub = torch.where(is_match, scores.match, scores.mismatch).to(i32)
+        win = slice(i + d_lo + pad_l, i + d_lo + pad_l + W)
+        jv = col_ok[:, win]                                      # (B, W)
+        is_match = q32[:, i:i + 1] == t_pad[:, win]
+        sub = torch.where(is_match, match, mismatch)
 
         H_up = torch.cat([H[:, 1:], neg_col], 1)
         E_open = H_up + (go + ge)
         E_ext = torch.cat([E[:, 1:], neg_col], 1) + ge
         En = torch.maximum(E_open, E_ext)
-        bits = (E_open >= E_ext).to(u8) * TB_E_OPEN
         Hdiag = H + sub
         Htmp = torch.maximum(Hdiag, En)
-        choice = (En > Hdiag).to(u8) * TB_UP
+        if with_traceback:
+            bits = (E_open >= E_ext).to(u8) * TB_E_OPEN
+            choice = (En > Hdiag).to(u8) * TB_UP
         if dual:
             E2_open = H_up + (go2 + ge2)
             E2_ext = torch.cat([E2[:, 1:], neg_col], 1) + ge2
             E2n = torch.maximum(E2_open, E2_ext)
-            bits |= (E2_open >= E2_ext).to(u8) * TB_E2_OPEN
-            choice = torch.where(E2n > Htmp, TB_UP2, choice).to(u8)
+            if with_traceback:
+                bits |= (E2_open >= E2_ext).to(u8) * TB_E2_OPEN
+                choice = torch.where(E2n > Htmp, TB_UP2, choice).to(u8)
             Htmp = torch.maximum(Htmp, E2n)
 
         lb = -1 - i - d_lo                       # column -1 boundary lane
@@ -166,18 +173,20 @@ def banded_dp_plain(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
         if inject:
             Htmp[:, lb] = gap_score(i + 1)
 
-        H_left = torch.cat([neg_col, Htmp[:, :-1]], 1)
         pm = torch.cummax(Htmp - ge_l, 1).values
         F = torch.cat([neg_col, pm[:, :-1]], 1).clamp_min(NEG) + ge_l + go
-        bits |= ((H_left + (go + ge)) >= F).to(u8) * TB_F_OPEN
+        if with_traceback:
+            H_left = torch.cat([neg_col, Htmp[:, :-1]], 1)
+            bits |= ((H_left + (go + ge)) >= F).to(u8) * TB_F_OPEN
+            choice = torch.where(F > Htmp, TB_LEFT, choice).to(u8)
         Hn = torch.maximum(Htmp, F)
-        choice = torch.where(F > Htmp, TB_LEFT, choice).to(u8)
         if dual:
             pm2 = torch.cummax(Htmp - ge2_l, 1).values
             F2 = torch.cat([neg_col, pm2[:, :-1]], 1).clamp_min(NEG) \
                 + ge2_l + go2
-            bits |= ((H_left + (go2 + ge2)) >= F2).to(u8) * TB_F2_OPEN
-            choice = torch.where(F2 > Hn, TB_LEFT2, choice).to(u8)
+            if with_traceback:
+                bits |= ((H_left + (go2 + ge2)) >= F2).to(u8) * TB_F2_OPEN
+                choice = torch.where(F2 > Hn, TB_LEFT2, choice).to(u8)
             Hn = torch.maximum(Hn, F2)
 
         cv = jv & (i < qlen)[:, None]
@@ -218,13 +227,16 @@ def _check_dp_inputs(q, t, qlen, tlen, W, branch):
     if W < 32 or W > 4096 or W & (W - 1):
         raise ValueError(f"banded_dp: W={W} must be a power of two in "
                          "[32, 4096] on CUDA")
-    if branch not in DP_BRANCHES or (branch == "warp" and W > 512):
+    if branch not in DP_BRANCHES or (branch == "warp" and W > 512) \
+            or (branch == "group" and W <= 512):
         raise ValueError(f"banded_dp: branch {branch!r} at W={W}")
 
 
-# the kernel's two designs (csrc/banded_dp.cu): "warp", a warp per
-# alignment (W <= 512); "block", a thread block per alignment
-DP_BRANCHES = {"auto": 0, "warp": 1, "block": 2}
+# the kernel's designs (csrc/banded_dp.cu): "warp", a warp per alignment
+# (W <= 512); "group", W/512 warps per alignment (W > 512); "block", a
+# thread block per alignment, kept for timing.  "auto" takes "warp" or
+# "group" by W.
+DP_BRANCHES = {"auto": 0, "warp": 1, "block": 2, "group": 3}
 
 
 def banded_dp_branch(W: int) -> str:
@@ -257,7 +269,7 @@ def banded_dp(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     tensors.  Same arguments and returns as `banded_dp_plain`; on CUDA the
     row0 rows ≥ qlen hold NEG.  `branch` forces one of the kernel's designs
     (DP_BRANCHES; "auto" lets the launcher pick, as every caller of the
-    port does).  Each launch appends (mode, B, M, W) to
+    port does).  Each launch appends (mode, design, B, M, W) to
     `banded_dp.shapes`."""
     if q.device.type == "cpu":
         return banded_dp_plain(q, t, qlen, tlen, W, d_lo, scores,
@@ -288,8 +300,10 @@ def banded_dp(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "banded_dp launch")
     banded_dp.launches += 1
+    taken = banded_dp_branch(W) if branch == "auto" else branch
     banded_dp.shapes.append((dp_mode(scores, with_traceback, free_t_end,
-                                     free_t_start, row0_scores), B, M, W))
+                                     free_t_start, row0_scores), taken, B, M,
+                             W))
     return score, end_j, tb, row0
 
 
