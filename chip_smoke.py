@@ -314,7 +314,7 @@ def phase1_kernels(seed: int):
             lambda: ba.banded_dp_plain(*args, W, d_lo, sc, **kw))
         rows = torch.arange(M, device=dev)[None, :] < args[2][:, None]
         taken = ba.banded_dp_branch(W)          # "warp" or "group"
-        branches = ["block", taken] + (["group1"] if taken == "group" else [])
+        branches = ["block", taken]
         err = 0
         for br in branches + ["auto"]:
             kern = ba.banded_dp(*args, W, d_lo, sc, **kw, branch=br)

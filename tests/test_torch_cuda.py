@@ -72,7 +72,7 @@ def _check_against_plain(cuda, args, M, W, d_lo, kw, sc):
     p = ba.banded_dp_plain(*args, W, d_lo, sc, **kw)
     rows = torch.arange(M, device=cuda)[None, :] < args[2][:, None]   # (B, M)
     taken = "warp" if W <= 512 else "group"
-    branches = ["auto", taken, "block"] + (["group1"] if W > 512 else [])
+    branches = ["auto", taken, "block"]
     ba.reset_launch_counts()
     for br in branches:
         k = ba.banded_dp(*args, W, d_lo, sc, **kw, branch=br)

@@ -376,11 +376,10 @@ __device__ __forceinline__ int t_code(const int8_t* t, int j, int tlen) {
 // after the following barrier.
 template <int K>
 struct GroupXchg {
-  int tot[2][K], tot2[2][K];  // each warp's max of Htmp - ge*l (ge2), by
-                              // row parity
-  int edge[2][K];             // Htmp of each warp's last lane, by row parity
-  int h[K], e[K], e2[K];      // each warp's lane 0 after the previous row
-  int bv[K], bl[K];           // free_t_end: each warp's best on the last row
+  int tot[K], tot2[K];     // each warp's max of Htmp - ge*l (ge2) this row
+  int edge[K];             // Htmp of each warp's last lane this row
+  int h[K], e[K], e2[K];   // each warp's lane 0 after the previous row
+  int bv[K], bl[K];        // free_t_end: each warp's best on the last row
 };
 
 // Barrier over the 32*K threads of one alignment.
@@ -389,19 +388,11 @@ __device__ __forceinline__ void group_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(32 * K) : "memory");
 }
 
-// Barrier 2 + v between warps v and v+1: v waits, v+1 signals.
-__device__ __forceinline__ void pair_wait(int v) {
-  asm volatile("bar.sync %0, 64;" ::"r"(2 + v) : "memory");
-}
-__device__ __forceinline__ void pair_signal(int v) {
-  asm volatile("bar.arrive %0, 64;" ::"r"(2 + v) : "memory");
-}
-
 // The rows of alignment b on warp w of its K warps, L lanes a thread: lane
 // l = (32w + thread) * L + k.  K = 1 is the warp design; x is the K warps'
 // exchange (unused at K = 1).  EDIT: go = 0 and one gap class, so that
 // E = H_up + ge (see the head of the file).
-template <int L, int K, bool DUAL, bool TB, bool EDIT, bool PAIRED>
+template <int L, int K, bool DUAL, bool TB, bool EDIT>
 __device__ __forceinline__ void dp_rows(const Params& p, const int b,
                                         const int w, const int row0_on,
                                         const int free_end,
@@ -456,11 +447,7 @@ __device__ __forceinline__ void dp_rows(const Params& p, const int b,
   int t_nxt = t_code(tbase, 32 + lane + d_lo + l_end, tlen);
   if constexpr (K > 1) {
     if (lane == 0) { x->h[w] = H[0]; x->e[w] = NEG; x->e2[w] = NEG; }
-    if constexpr (PAIRED) {
-      if (w > 0 && rows > 0) pair_signal(w - 1);
-    } else {
-      group_sync<K>();
-    }
+    group_sync<K>();
   }
 
   for (int i = 0; i < rows; ++i) {
@@ -481,9 +468,6 @@ __device__ __forceinline__ void dp_rows(const Params& p, const int b,
     if constexpr (!EDIT) e_nx = __shfl_down_sync(FULL, E[0], 1);
     if constexpr (DUAL) e2_nx = __shfl_down_sync(FULL, E2[0], 1);
     const unsigned t_nx = __shfl_down_sync(FULL, tw[0], 1);
-    if constexpr (K > 1 && PAIRED) {
-      if (w + 1 < K) pair_wait(w);
-    }
     if (lane == 31) {
       h_nx = NEG; e_nx = NEG; e2_nx = NEG;
       if constexpr (K > 1) {
@@ -562,21 +546,20 @@ __device__ __forceinline__ void dp_rows(const Params& p, const int b,
     if constexpr (K > 1) {
       // the prefix starts from the totals of the warps to the left; lane 0
       // takes h_left from the last lane of the warp before
-      const int par = i & 1;
       if (lane == 31) {
-        x->tot[par][w] = tot;
-        if constexpr (DUAL) x->tot2[par][w] = tot2;
-        x->edge[par][w] = H[L - 1];
+        x->tot[w] = tot;
+        if constexpr (DUAL) x->tot2[w] = tot2;
+        x->edge[w] = H[L - 1];
       }
       group_sync<K>();
 #pragma unroll
       for (int v = 0; v + 1 < K; ++v) {
         if (v < w) {
-          run = max(run, x->tot[par][v]);
-          if constexpr (DUAL) run2 = max(run2, x->tot2[par][v]);
+          run = max(run, x->tot[v]);
+          if constexpr (DUAL) run2 = max(run2, x->tot2[v]);
         }
       }
-      if (lane == 0 && w > 0) h_left = x->edge[par][w - 1];
+      if (lane == 0 && w > 0) h_left = x->edge[w - 1];
     }
 
     // ---- H, the traceback byte, the masks ----
@@ -677,13 +660,7 @@ __device__ __forceinline__ void dp_rows(const Params& p, const int b,
     } else {
       tw[0] = (tw[0] >> 8) | (in << (8 * (L - 1)));
     }
-    if constexpr (K > 1) {                    // lane 0 of each warp is out
-      if constexpr (PAIRED) {
-        if (w > 0 && i + 1 < rows) pair_signal(w - 1);
-      } else {
-        group_sync<K>();
-      }
-    }
+    if constexpr (K > 1) group_sync<K>();     // lane 0 of each warp is out
   }
   if (row0_on) {
     for (int i = max(rows, 0) + 32 * w + lane; i < p.M; i += 32 * K) {
@@ -697,16 +674,15 @@ __global__ void __launch_bounds__(128)
 banded_dp_warp_kernel(Params p, int row0_on, int free_end) {
   const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (b >= p.B) return;                 // ragged last block: whole warps
-  dp_rows<L, 1, DUAL, TB, false, false>(p, b, 0, row0_on, free_end,
-                                       nullptr);
+  dp_rows<L, 1, DUAL, TB, false>(p, b, 0, row0_on, free_end, nullptr);
 }
 
-template <int K, bool DUAL, bool TB, bool EDIT, bool PAIRED>
+template <int K, bool DUAL, bool TB, bool EDIT>
 __global__ void __launch_bounds__(32 * K)
 banded_dp_group_kernel(Params p, int row0_on, int free_end) {
   __shared__ GroupXchg<K> x;
-  dp_rows<GROUP_L, K, DUAL, TB, EDIT, PAIRED>(p, blockIdx.x, threadIdx.x >> 5,
-                                              row0_on, free_end, &x);
+  dp_rows<GROUP_L, K, DUAL, TB, EDIT>(p, blockIdx.x, threadIdx.x >> 5,
+                                      row0_on, free_end, &x);
 }
 
 template <int L, bool DUAL, bool TB>
@@ -730,28 +706,21 @@ int launch_warp(const Params& p, int row0, int free_end, cudaStream_t s) {
   }
 }
 
-template <int K, bool DUAL, bool TB, bool EDIT, bool PAIRED>
+template <int K, bool DUAL, bool TB, bool EDIT>
 int launch_group_k(const Params& p, int row0, int free_end, cudaStream_t s) {
-  banded_dp_group_kernel<K, DUAL, TB, EDIT, PAIRED><<<p.B, 32 * K, 0, s>>>(
+  banded_dp_group_kernel<K, DUAL, TB, EDIT><<<p.B, 32 * K, 0, s>>>(
       p, row0, free_end);
   return (int)cudaGetLastError();
 }
 
-template <bool DUAL, bool TB, bool EDIT, bool PAIRED>
-int launch_group_p(const Params& p, int row0, int free_end, cudaStream_t s) {
-  switch (p.W) {
-    case 1024: return launch_group_k<2, DUAL, TB, EDIT, PAIRED>(p, row0, free_end, s);
-    case 2048: return launch_group_k<4, DUAL, TB, EDIT, PAIRED>(p, row0, free_end, s);
-    case 4096: return launch_group_k<8, DUAL, TB, EDIT, PAIRED>(p, row0, free_end, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-int g_paired = 0;
 template <bool DUAL, bool TB, bool EDIT>
 int launch_group(const Params& p, int row0, int free_end, cudaStream_t s) {
-  return g_paired ? launch_group_p<DUAL, TB, EDIT, true>(p, row0, free_end, s)
-                  : launch_group_p<DUAL, TB, EDIT, false>(p, row0, free_end, s);
+  switch (p.W) {
+    case 1024: return launch_group_k<2, DUAL, TB, EDIT>(p, row0, free_end, s);
+    case 2048: return launch_group_k<4, DUAL, TB, EDIT>(p, row0, free_end, s);
+    case 4096: return launch_group_k<8, DUAL, TB, EDIT>(p, row0, free_end, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -778,8 +747,6 @@ extern "C" int banded_dp_launch_branch(
   if (W < 32 || W > 1024 * MAXL || (W & (W - 1)) != 0 || B <= 0 || M <= 0)
     return (int)cudaErrorInvalidValue;
   if (branch == 0) branch = pick_branch(W);
-  g_paired = branch == 4;
-  if (branch == 4) branch = BRANCH_GROUP;
   if (branch != BRANCH_WARP && branch != BRANCH_BLOCK &&
       branch != BRANCH_GROUP)
     return (int)cudaErrorInvalidValue;

@@ -228,7 +228,7 @@ def _check_dp_inputs(q, t, qlen, tlen, W, branch):
         raise ValueError(f"banded_dp: W={W} must be a power of two in "
                          "[32, 4096] on CUDA")
     if branch not in DP_BRANCHES or (branch == "warp" and W > 512) \
-            or (branch in ("group", "group1") and W <= 512):
+            or (branch == "group" and W <= 512):
         raise ValueError(f"banded_dp: branch {branch!r} at W={W}")
 
 
@@ -236,7 +236,7 @@ def _check_dp_inputs(q, t, qlen, tlen, W, branch):
 # (W <= 512); "group", W/512 warps per alignment (W > 512); "block", a
 # thread block per alignment, kept for timing.  "auto" takes "warp" or
 # "group" by W.
-DP_BRANCHES = {"auto": 0, "warp": 1, "block": 2, "group": 3, "group1": 4}
+DP_BRANCHES = {"auto": 0, "warp": 1, "block": 2, "group": 3}
 
 
 def banded_dp_branch(W: int) -> str:
