@@ -17,11 +17,11 @@
 // kernel's int16-range NEG16 = -20000 would collide with real scores of
 // edit distance at L = 16384 or of affine scoring over 8192-row windows.
 //
-// What bounds it on the card: integer operations.  A cell costs 13 (affine,
-// score only) to 36 (dual-affine with traceback) int32 adds, maxes,
-// compares and selects (chip_smoke.py, DP_OPS_PER_CELL), against one
-// traceback byte written; at 132 SMs x 64 int32 lanes the operations
-// outweigh the bytes four- to sevenfold.  The row
+// What bounds it on the card: integer operations.  A cell costs 5 (edit
+// distance, score only) to 36 (dual-affine with traceback) int32 adds,
+// maxes, compares and selects (chip_smoke.py, DP_OPS_PER_CELL), against at
+// most one traceback byte written; at 132 SMs x 64 int32 lanes the
+// operations outweigh the bytes four- to sevenfold.  The row
 // recurrence is sequential, so each alignment walks its M rows in order and
 // the latency of one row (the lane-crossing F prefix above all) has to be
 // hidden behind other alignments.  Three designs; the launcher takes the
@@ -56,7 +56,7 @@
 //   (edit distance: Scores.edit()) E = H_up + ge exactly, since the stored
 //   E never exceeds the stored H, and E opens at every cell: the EDIT
 //   instance keeps no E registers.
-// banded_dp_kernel (PR 2's design, kept for timing as branch "block"):
+// banded_dp_kernel (the first design, kept for timing as branch "block"):
 //   one thread block per alignment, min(W, 1024) threads each owning
 //   W/blockDim contiguous lanes.  The previous row's H, E and E2 live in
 //   shared memory (one buffer: every read of row i happens before the
@@ -328,9 +328,9 @@ constexpr int WARP_W_MAX = 512;
 constexpr int GROUP_L = 16;             // lanes a thread in the group design
 constexpr int BRANCH_WARP = 1, BRANCH_BLOCK = 2, BRANCH_GROUP = 3;
 
-// The design a launch takes: the warp one at every W <= 512, whatever B
-// (it was the faster at every batch size timed, B = 64 included), the group
-// one above.
+// The design a launch takes: the warp one at every W <= 512 and the group
+// one above, whatever B (each was faster than the block design at every
+// batch size timed, B = 64 included).
 int pick_branch(int W) {
   return W <= WARP_W_MAX ? BRANCH_WARP : BRANCH_GROUP;
 }
