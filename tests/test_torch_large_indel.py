@@ -9,6 +9,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from volcanosv_tpu import sim
 from volcanosv_tpu.cli import main as ref_main
@@ -20,6 +21,17 @@ from volcanosv_tpu_torch.cli import main as port_main
 from volcanosv_tpu_torch.vc import redundancy as port_red
 
 VCF = "volcanosv_large_indel.vcf"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's CPU path is many small tensor ops a DP row; beside other
+    busy processes (the suite's parallel workers) torch's intra-op thread
+    pool makes each op wait on every thread, so these tests take one."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _truth_vcf(path, ref, truth):
