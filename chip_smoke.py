@@ -51,10 +51,33 @@ Phase 2b the port's `eval` of phase 2's calls against a truth VCF with the
 Phase 3  the same CLI on a 200 kb case with `--device cuda` and with
          `--device cpu` (the plain versions): the two VCFs must be
          byte-identical.
+Phase 4  `asm --device cuda` (pileup with pair-HMM realignment, MEC
+         phasing, k-mer read partition, OLC assembly) on a simulated 2 Mb
+         chromosome (20 DEL + 20 INS of 50-2000 bp, het and hom SNPs at
+         1/1500, HiFi reads at 30x, 9 kb: the golden recipe's coverage and
+         read length), then `vc-large-indel --device cuda` on its
+         `final_contigs.fa` with the same reads, and the port's `eval`:
+         recall >= 0.8 and precision >= 0.7, and both kernels launched
+         during `asm`.  The stage times, the DP launches by (mode, design,
+         B, M, W) and the calls of the torch-op device functions are
+         listed.  A user's chromosome is 50-250 Mb; the k-mer tables
+         (4^12 int32 each, up to 8 resident) are at full size at any
+         length.  With --profile the `asm` run is traced too.
+Phase 4b `asm` with `--device cuda` and with `--device cpu` on the
+         pipeline test's recipe (80 kb, 24x, 7 kb reads, seed 21):
+         final_contigs.fa, phased_snps.vcf, read_hp_chr1.tsv and phased.bam
+         byte-identical.  Then each torch-op device function of the path on
+         the card against the CPU, timed on both beside its bound: the
+         pair-HMM Viterbi (8192 pairs, R = 57, W = 41, error 0.002 and 0.1;
+         scores bit-equal), the MEC votes (8 restarts on phase 4's largest
+         observation set), the k-mer hashes and count of one table-build
+         chunk, the unique mask of four tables, and the distinct runs and
+         4-way vote of one chunk of 64 reads (phase 4's own inputs; equal).
 
-Any failure raises.  On success the last four lines of standard output are
-phase 2's summary (launches by shape, stage times, eval), the card's
-`nvidia-smi` name and power limit, one JSON object with the kernels'
+`--phases` runs a subset (e.g. `--phases 4,4b`) and then prints no result
+lines.  Any failure raises.  On success the last four lines of standard
+output are the phases' summary (launches by shape, stage times, eval), the
+card's `nvidia-smi` name and power limit, one JSON object with the kernels'
 launches, errors, times and bounds, and the `{"ok": true, ...}` line.
 """
 from __future__ import annotations
@@ -76,6 +99,9 @@ WORK = os.path.join(REPO, "build", "chip_smoke")
 # int32 at 132 SMs x 64 int32 lanes x 1.98 GHz (the boost clock).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# fp32 outside the tensor cores: 132 SMs x 128 lanes x 1.98 GHz, one
+# operation a lane a cycle (the data sheet's 67 TFLOP/s counts an FMA as two)
+FP32_OPS_PER_S = 132 * 128 * 1.98e9
 
 # int32 operations of one DP cell, counted from the recurrence of
 # ops/banded_align.py::banded_dp_plain; an add, max, compare or select
@@ -108,6 +134,7 @@ WALK_OPS_PER_STEP = 8
 # the main path's kernel launches on the 10 Mb slice with the default seed
 # (the path is deterministic)
 EXPECTED_LAUNCHES = {"banded_dp": 17, "tb_walk": 15}
+PHASES = ("1", "2", "2b", "3", "4", "4b")
 
 
 def _log(msg: str) -> None:
@@ -156,11 +183,12 @@ def _smem_latency() -> dict:
     return dict(cycles=cycles / n, ns=ns / n)
 
 
-def _bound(n_bytes: float, n_ops: float) -> dict:
+def _bound(n_bytes: float, n_ops: float,
+           ops_per_s: float = INT32_OPS_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the int32 operations over the int32 rate."""
+    memory rate and the operations over their rate (int32 unless said)."""
     b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    o_ms = n_ops / INT32_OPS_PER_S * 1e3
+    o_ms = n_ops / ops_per_s * 1e3
     return dict(bound_ms=max(b_ms, o_ms),
                 bound_by="bytes" if b_ms >= o_ms else "operations",
                 bytes=int(n_bytes), ops=int(n_ops))
@@ -282,8 +310,10 @@ def phase1_kernels(seed: int):
         ("traceback", 1001, 512, 256, -128, asm5, {}, False),
         ("edit", 1024, 512, 512, -256, edit, score_only, False),
         ("dual-affine traceback", 256, 512, 512, -256, asm20, {}, False),
-        # the consensus vote's band (olc.py::_batched_cigars)
+        # the consensus vote's band (olc.py::_batched_cigars), and its
+        # largest batch on phase 4's asm run
         ("consensus traceback", 2048, 1024, 64, -32, vote, {}, False),
+        ("consensus traceback", 8192, 256, 64, -32, vote, {}, False),
         # the wide bands of edit_sim_batch's length buckets (L = 1024,
         # 2048, >= 4096: W = 1024, 2048, 4096), half the pairs unrelated
         ("edit", 64, 1024, 1024, -512, edit, score_only, True),
@@ -409,15 +439,12 @@ def phase1_kernels(seed: int):
 
 def _write_case(d: str, seed: int, length: int, n_del: int, n_ins: int):
     """Simulate one chromosome with the port's `sim` and write ref, contigs,
-    reads and two truth VCFs under d: `truth.vcf` with symbolic ALTs, and
-    `truth_seq.vcf` with the sequences (REF = the anchor base and the
-    deleted bases, ALT = the anchor base and the inserted ones)."""
+    reads and two truth VCFs under d (`_write_truth`)."""
     import numpy as np
 
     from volcanosv_tpu_torch import sim
     from volcanosv_tpu_torch.io.fasta import write_fasta
     from volcanosv_tpu_torch.io.fastq import write_fastq
-    from volcanosv_tpu_torch.io.vcf import VcfRecord, make_header, write_vcf
     os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(seed)
     ref = sim.random_genome(rng, length)
@@ -429,6 +456,16 @@ def _write_case(d: str, seed: int, length: int, n_del: int, n_ins: int):
     write_fasta(os.path.join(d, "contigs.fa"), contigs)
     write_fastq(os.path.join(d, "reads.fastq"),
                 ((n, s, None) for n, s, *_ in reads))
+    _write_truth(d, ref, truth)
+    return len(contigs), len(reads)
+
+
+def _write_truth(d: str, ref: dict, truth: list) -> None:
+    """Two truth VCFs under d: `truth.vcf` with symbolic ALTs, and
+    `truth_seq.vcf` with the sequences (REF = the anchor base and the
+    deleted bases, ALT = the anchor base and the inserted ones)."""
+    from volcanosv_tpu_torch.io.vcf import VcfRecord, make_header, write_vcf
+
     def alleles(t):
         anchor = ref[t.chrom][t.pos]
         if t.svtype == "INS":
@@ -445,12 +482,18 @@ def _write_case(d: str, seed: int, length: int, n_del: int, n_ins: int):
             info={"SVTYPE": t.svtype, "SVLEN": t.svlen,
                   "END": t.pos + 1 + t.svlen}) for i, t in enumerate(truth)]
         write_vcf(os.path.join(d, name), header, recs)
-    return len(contigs), len(reads)
 
 
-def _vc_args(d: str, out: str, device: str) -> list[str]:
+def _vc_args(d: str, out: str, device: str,
+             contigs: str = "contigs.fa") -> list[str]:
     return ["vc-large-indel", "--ref", os.path.join(d, "ref.fa"),
-            "--contig", os.path.join(d, "contigs.fa"),
+            "--contig", os.path.join(d, contigs),
+            "--fastq", os.path.join(d, "reads.fastq"),
+            "-o", out, "--device", device]
+
+
+def _asm_args(d: str, out: str, device: str) -> list[str]:
+    return ["asm", "--ref", os.path.join(d, "ref.fa"),
             "--fastq", os.path.join(d, "reads.fastq"),
             "-o", out, "--device", device]
 
@@ -599,14 +642,370 @@ def phase3_cuda_vs_cpu(seed: int) -> None:
         raise AssertionError("phase 3: cuda and cpu VCFs differ")
     _log(f"phase 3: VCFs byte-identical ({len(vcfs[0])} bytes)")
 
+# The asm path's torch-op device functions (the JAX package's jitted XLA
+# code): module of the call site, attribute, and which call's inputs phase
+# 4b keeps (None: the first).
+WATCHED = (("phasing.realign", "_viterbi_batch", None),
+           ("phasing.phase", "_mec_phase",
+            lambda args: args[0].numel()),       # the most observations
+           ("partition.partition", "kmer_hashes",
+            lambda args: args[0].shape[0] == 1 and args[0].numel()),
+           ("partition.partition", "count_kmers_dense", None),
+           ("partition.partition", "unique_mask", None),
+           ("partition.partition", "distinct_runs", None),
+           ("partition.partition", "overlap_scores", None))
+# operations of one pair-HMM cell (phasing/realign.py::_viterbi_batch), the
+# least the recurrence needs: the match compare and the emission's select
+# (2); M: three transitions, their two maxes and the emission's add (6); I:
+# two transitions, their max and the insert emission (4); D: the column
+# offset, the running max and two adds (4).
+VITERBI_OPS_PER_CELL = 16
+
+
+def _watch(calls: dict, kept: dict):
+    """Wrap each WATCHED function where the path calls it: count its calls
+    and keep the inputs of one call.  Returns the undo."""
+    import importlib
+    undo = []
+    for mod_name, attr, key in WATCHED:
+        mod = importlib.import_module(f"volcanosv_tpu_torch.{mod_name}")
+        fn = getattr(mod, attr)
+
+        def wrapper(*args, _fn=fn, _attr=attr, _key=key, **kw):
+            calls[_attr] = calls.get(_attr, 0) + 1
+            old = kept.get(_attr)
+            if _key is None and old is None or _key is not None and \
+                    _key(args) and (old is None or _key(args) > _key(old[0])):
+                kept[_attr] = (args, kw)
+            return _fn(*args, **kw)
+        setattr(mod, attr, wrapper)
+        undo.append((mod, attr, fn))
+    return lambda: [setattr(m, a, f) for m, a, f in undo]
+
+
+def _write_asm_case(d: str, seed: int, length: int, n_del: int, n_ins: int,
+                    coverage: float, read_len: int):
+    """Simulate one chromosome as the `sim` subcommand does (SVs, then het
+    and hom SNPs at 1/1500 off the SVs, then reads at error 0.001) and
+    write ref, reads and the truth VCFs under d."""
+    import numpy as np
+
+    from volcanosv_tpu_torch import sim
+    from volcanosv_tpu_torch.io.fasta import write_fasta
+    from volcanosv_tpu_torch.io.fastq import write_fastq
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    ref = sim.random_genome(rng, length)
+    hap1, hap2, truth = sim.implant_svs(rng, ref, n_del=n_del, n_ins=n_ins,
+                                        min_len=50, max_len=2000)
+    hap1, hap2, _ = sim.implant_snps_ref(rng, ref, hap1, hap2, truth)
+    reads = sim.simulate_reads(rng, {1: hap1, 2: hap2}, coverage=coverage,
+                               read_len=read_len)
+    write_fasta(os.path.join(d, "ref.fa"), ref)
+    write_fastq(os.path.join(d, "reads.fastq"),
+                ((n, s, None) for n, s, *_ in reads))
+    _write_truth(d, ref, truth)
+    return len(reads)
+
+
+def phase4_asm(seed: int, profile: bool):
+    """`asm --device cuda` on 2 Mb at 30x, then `vc-large-indel --device
+    cuda` on its contigs and `eval`.  Returns the summary and the inputs
+    kept of the torch-op device functions."""
+    import contextlib
+
+    import torch
+
+    from volcanosv_tpu_torch import cli
+    from volcanosv_tpu_torch.eval import EvalParams, evaluate_files
+    from volcanosv_tpu_torch.ops import banded_align as ba
+    from volcanosv_tpu_torch.utils.logging import STAGE_TIMES, stage_report
+    d = os.path.join(WORK, "asm")
+    t0 = time.perf_counter()
+    n_reads = _write_asm_case(d, seed + 4, 2_000_000, 20, 20, 30.0, 9_000)
+    sim_s = time.perf_counter() - t0
+    _log(f"phase 4: simulated 2 Mb, {n_reads} reads in {sim_s:.1f} s")
+    out = os.path.join(d, "out")
+    calls, kept = {}, {}
+    undo = _watch(calls, kept)
+    STAGE_TIMES.clear()
+    ba.reset_launch_counts()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profile \
+        else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    try:
+        with prof:
+            rc = cli.main(_asm_args(d, out, "cuda"))
+            torch.cuda.synchronize()
+    finally:
+        undo()
+    asm_s = time.perf_counter() - t0
+    launches = {"banded_dp": ba.banded_dp.launches,
+                "tb_walk": ba.tb_walk.launches}
+    dp_shapes = _dp_shapes(ba.banded_dp.shapes)
+    from collections import Counter
+    walk_shapes = [dict(branch=br, B=B, M=M, W=W, count=n)
+                   for (br, B, M, W), n in Counter(ba.tb_walk.shapes).items()]
+    stages = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
+    if rc != 0:
+        raise AssertionError(f"asm exited {rc}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched during asm")
+    _log(f"phase 4: asm {asm_s:.1f} s, launches {launches}, torch-op "
+         f"device functions called {json.dumps(calls)}\n"
+         f"phase 4: banded_dp launches by shape {json.dumps(dp_shapes)}\n"
+         f"phase 4: tb_walk launches by shape {json.dumps(walk_shapes)}\n"
+         + stage_report())
+    profile_info = _profile_summary(prof, asm_s) if profile else None
+    if profile:
+        _log(f"phase 4: profile {json.dumps(profile_info)}")
+    with open(os.path.join(out, "final_contigs.fa")) as fh:
+        n_ctg = sum(line.startswith(">") for line in fh)
+    vc_out = os.path.join(d, "vc")
+    t0 = time.perf_counter()
+    if cli.main(_vc_args(d, vc_out, "cuda",
+                         os.path.join("out", "final_contigs.fa"))) != 0:
+        raise AssertionError("vc-large-indel on the asm contigs failed")
+    vc_s = time.perf_counter() - t0
+    res = evaluate_files(os.path.join(d, "truth.vcf"),
+                         os.path.join(vc_out, "volcanosv_large_indel.vcf"),
+                         EvalParams(), device=torch.device("cuda"))
+    summary = res.summary()
+    _log(f"phase 4: {n_ctg} contigs; vc-large-indel {vc_s:.1f} s; eval "
+         f"{json.dumps(summary)}")
+    if res.recall < 0.8 or res.precision < 0.7:
+        raise AssertionError(f"phase 4: accuracy gate failed: {summary}")
+    info = dict(asm_s=asm_s, sim_s=sim_s, vc_s=vc_s, reads=n_reads,
+                contigs=n_ctg, eval=summary, launches=launches,
+                stages=stages, device_function_calls=calls,
+                banded_dp_shapes=dp_shapes, tb_walk_shapes=walk_shapes,
+                profile=profile_info)
+    return info, kept
+
+
+def _time_calls_ms(fn, runs: int = 5) -> float:
+    """Milliseconds per call of a function of many small torch ops on the
+    card, the host's launch cost included (that is what the path pays):
+    events around `runs` calls after a warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(runs):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / runs
+
+
+def _on(x, dev):
+    return x.to(dev) if hasattr(x, "to") else x
+
+
+def _card_vs_cpu(name: str, fn, args, equal, bound: dict) -> dict:
+    """fn(*args) on the card and on the CPU: outputs checked by `equal`,
+    times on both, the bound beside them."""
+    import torch
+    args_cpu = [_on(a, "cpu") for a in args]
+    t0 = time.perf_counter()
+    want = fn(*args_cpu)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    got = fn(*args)
+    torch.cuda.synchronize()
+    if not equal(got, want):
+        raise AssertionError(f"phase 4b: {name} on the card != on the CPU")
+    ms = _time_calls_ms(lambda: fn(*args))
+    row = dict(name=name, ms=ms, cpu_ms=cpu_ms,
+               share_of_bound=bound["bound_ms"] / ms, **bound)
+    _log(f"phase 4b: {json.dumps(row)}")
+    return row
+
+
+def _viterbi_pairs(rng, B: int, R: int, W: int, err: float):
+    """Read segments drawn from their hap windows at error `err` (some
+    padded, some empty), N codes sprinkled in the windows."""
+    import numpy as np
+    haps = rng.integers(0, 4, (B, W)).astype(np.int8)
+    haps[rng.random((B, W)) < 0.01] = 4
+    segs = np.full((B, R), 4, np.int8)
+    lens = rng.integers(0, R + 1, B).astype(np.int32)
+    for b in range(B):
+        sg = haps[b, rng.integers(0, 5):][:lens[b]].copy()
+        mut = rng.random(len(sg)) < err
+        sg[mut] = rng.integers(0, 4, int(mut.sum()))
+        n = min(len(sg), lens[b])
+        segs[b, :n] = sg[:n]
+        segs[b, n:lens[b]] = rng.integers(0, 4, lens[b] - n)
+    return segs, lens, haps
+
+
+def _equal_tensors(got, want) -> bool:
+    import torch
+    if isinstance(want, torch.Tensor):
+        got, want = [got], [want]
+    return all(g.dtype == w.dtype and torch.equal(g.cpu(), w)
+               for g, w in zip(got, want))
+
+
+def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
+    """`asm` on cuda and cpu (byte-identical outputs), then each torch-op
+    device function of the path, card against CPU, timed beside its
+    bound."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from volcanosv_tpu_torch import cli, sim
+    from volcanosv_tpu_torch.io.fasta import write_fasta
+    from volcanosv_tpu_torch.io.fastq import write_fastq
+    from volcanosv_tpu_torch.ops import kmer
+    from volcanosv_tpu_torch.phasing import phase, realign
+    d = os.path.join(WORK, "asm_cuda_vs_cpu")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(21)        # tests/test_pipeline_e2e.py
+    ref = sim.random_genome(rng, 80_000)
+    hap1, hap2, _truth = sim.implant_svs(rng, ref, n_del=3, n_ins=3,
+                                         min_len=60, max_len=250,
+                                         min_gap=4_000)
+    hap1, hap2, _ = sim.implant_snps(rng, hap1, hap2, rate=1 / 1200)
+    reads = sim.simulate_reads(rng, {1: hap1, 2: hap2}, coverage=24.0,
+                               read_len=7_000, read_len_sd=900,
+                               sub_rate=0.001, indel_rate=0.0005)
+    write_fasta(os.path.join(d, "ref.fa"), ref)
+    write_fastq(os.path.join(d, "reads.fastq"),
+                ((n, s, None) for n, s, *_ in reads))
+    outs, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(d, f"out_{device}")
+        t0 = time.perf_counter()
+        if cli.main(_asm_args(d, out, device)) != 0:
+            raise AssertionError(f"asm --device {device} failed")
+        secs[device] = time.perf_counter() - t0
+        outs[device] = {}
+        for name in ("final_contigs.fa", "phased_snps.vcf",
+                     os.path.join("checkpoints", "read_hp_chr1.tsv"),
+                     "phased.bam"):
+            with open(os.path.join(out, name), "rb") as fh:
+                outs[device][name] = fh.read()
+    for name, want in outs["cpu"].items():
+        if outs["cuda"][name] != want or not want:
+            raise AssertionError(f"phase 4b: asm {name} differs between "
+                                 "cuda and cpu")
+    info = dict(asm_s=secs, bytes={n: len(b) for n, b in outs["cpu"].items()})
+    _log(f"phase 4b: asm outputs byte-identical on cuda and cpu "
+         f"{json.dumps(info)}")
+
+    dev = torch.device("cuda")
+    rows = []
+    B, R, W = 8192, 57, 41
+    for err in (0.002, 0.1):
+        segs, lens, haps = _viterbi_pairs(np.random.default_rng(seed), B, R,
+                                          W, err)
+        p = realign.PairHmmParams(err)
+        kw = dict(W=W, log_match=p.log_match, log_mis=p.log_mis,
+                  log_ins=p.log_ins, a_mm=p.a_mm, a_gap=p.a_gap,
+                  a_ext=p.a_ext, a_back=p.a_back)
+        cells = int(lens.sum()) * W
+        bound = _bound(B * (R + W + 8),
+                       cells * VITERBI_OPS_PER_CELL + 2 * B * W,
+                       FP32_OPS_PER_S)
+        rows.append(dict(_card_vs_cpu(
+            f"_viterbi_batch err={err}",
+            lambda *a: realign._viterbi_batch(*a, **kw),
+            [torch.from_numpy(x).to(dev) for x in (segs, lens, haps)],
+            lambda g, w: np.array_equal(g.cpu().numpy().view(np.int32),
+                                        w.numpy().view(np.int32)),
+            bound), B=B, R=R, W=W, bound_type="fp32"))
+
+    args, kw = kept["_mec_phase"]
+    obs_read, obs_snp, obs_allele, h0 = args
+    n_obs, (n_restarts, S) = obs_read.numel(), h0.shape
+    n_reads, n_iter = kw["n_reads"], kw["n_iter"]
+    # per restart: each iteration two votes (a multiply and an add an
+    # observation each) and two signs (a compare and a select a read or a
+    # SNP); then the last read vote and sign, and the MEC (two multiplies,
+    # two compares, an and, an add an observation)
+    ops = n_restarts * (n_iter * (4 * n_obs + 2 * (n_reads + S))
+                        + 2 * n_obs + 2 * n_reads + 6 * n_obs)
+    n_bytes = sum(a.numel() * a.element_size() for a in args) \
+        + 4 * (S + n_reads + 1)
+    rows.append(dict(_card_vs_cpu(
+        "_mec_phase", lambda *a: phase._mec_phase(*a, **kw), list(args),
+        _equal_tensors, _bound(n_bytes, ops)),
+        obs=n_obs, restarts=n_restarts, snps=S, reads=n_reads,
+        n_iter=n_iter))
+
+    (codes, k), _ = kept["kmer_hashes"]
+    n = codes.shape[1] - k + 1
+    rows.append(dict(_card_vs_cpu(
+        "kmer_hashes + count_kmers_dense",
+        lambda c: kmer.count_kmers_dense(*kmer.kmer_hashes(c, k), k),
+        [codes], _equal_tensors,
+        # per window: k steps of a shift, an and, an or, a compare and an
+        # or, then the bounds test, the weight and the add (4); codes in,
+        # the 4^k table out
+        _bound(codes.numel() + 4 * 4**k, n * (5 * k + 4))),
+        codes=int(codes.numel()), k=k))
+    (tables,), _ = kept["unique_mask"]
+    rows.append(dict(_card_vs_cpu(
+        "unique_mask", kmer.unique_mask, [tables], _equal_tensors,
+        # per entry: the presence compare, its add into the count, the
+        # count compare and the and
+        _bound(tables.numel() * 5, tables.numel() * 4)),
+        tables=list(tables.shape)))
+    (h, v), _ = kept["distinct_runs"]
+    (_s, _f, _r, t4, u4), _ = kept["overlap_scores"]
+    Bk, nk = h.shape
+    s_, first, _run = kmer.distinct_runs(h, v)
+    n_distinct = int(first.sum())
+    H = t4.shape[0]
+    # the sort's compares (n log2 n a row), the first-occurrence and run
+    # length passes (8 an entry), and per distinct k-mer and table the
+    # gathered count and flag (5 bytes) and the select and add (3)
+    ops = Bk * nk * math.ceil(math.log2(nk)) + 8 * Bk * nk \
+        + 3 * H * n_distinct
+    n_bytes = 5 * Bk * nk + 5 * H * n_distinct + 4 * Bk * H
+    rows.append(dict(_card_vs_cpu(
+        "distinct_runs + overlap_scores",
+        lambda hh, vv, tt, uu: kmer.overlap_scores(
+            *kmer.distinct_runs(hh, vv), tt, uu),
+        [h, v, t4, u4], _equal_tensors, _bound(n_bytes, ops)),
+        B=Bk, n=nk, distinct=n_distinct, tables=H))
+    info["device_functions"] = rows
+    return info
+
+
+def _row_at_top_shape(rows: list[dict], shapes: list[dict]) -> dict:
+    """The phase-1 row at the (B, M, W) that a path launched most often."""
+    top = max(shapes, key=lambda r: r["count"])
+    for r in rows:
+        if (r["B"], r["M"], r["W"]) == (top["B"], top["M"], top["W"]):
+            return r
+    raise AssertionError(f"phase 1 checks no shape the path launched most: "
+                         f"{top}")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace phase 2 with torch.profiler and print the "
-                         "device time by kernel")
+                    help="trace phases 2 and 4 with torch.profiler and "
+                         "print the device time by kernel")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of "
+                         f"{','.join(PHASES)}; a subset prints no result "
+                         "lines")
     args = ap.parse_args()
+    phases = args.phases.split(",")
+    if not set(phases) <= set(PHASES) or "2b" in phases and "2" not in phases \
+            or "4b" in phases and "4" not in phases:
+        ap.error(f"--phases: a subset of {PHASES} (2b needs 2, 4b needs 4)")
     import torch
     if not torch.cuda.is_available():
         _log("chip_smoke: no CUDA device")
@@ -631,39 +1030,54 @@ def main() -> int:
          f"{time.perf_counter() - t_start:.1f} s "
          f"({cuda_build.build_dir()}) on {smi}")
 
-    dp_rows, walk_rows, smem = phase1_kernels(args.seed)
-    launches, slice_info = phase2_slice(args.seed, args.profile)
-    slice_info["eval_alt"] = phase2b_eval_alt()
-    phase3_cuda_vs_cpu(args.seed)
+    info = {}
+    if "1" in phases:
+        dp_rows, walk_rows, smem = phase1_kernels(args.seed)
+    if "2" in phases:
+        launches, info["slice"] = phase2_slice(args.seed, args.profile)
+    if "2b" in phases:
+        info["slice"]["eval_alt"] = phase2b_eval_alt()
+    if "3" in phases:
+        phase3_cuda_vs_cpu(args.seed)
+    if "4" in phases:
+        info["asm"], kept = phase4_asm(args.seed, args.profile)
+    if "4b" in phases:
+        info["asm_cuda_vs_cpu"] = phase4b_asm_cuda_vs_cpu(args.seed, kept)
+    _log(f"total {time.perf_counter() - t_start:.1f} s")
+    if phases != list(PHASES):
+        _log(json.dumps(info))
+        return 0
 
     warp_rows = [r for r in dp_rows if r["branch"] == "warp"]
     group_rows = [r for r in dp_rows if r["branch"] == "group"]
-    # heads: traceback B=4096 M=256 W=256; edit B=1024 M=4096 W=4096
+    # heads: traceback B=4096 M=256 W=256; edit B=1024 M=4096 W=4096; the
+    # asm path's: the consensus vote's band
     head_dp, head_walk = warp_rows[0], walk_rows[0]
     head_group = group_rows[0]
+    asm_dp = _row_at_top_shape(dp_rows, info["asm"]["banded_dp_shapes"])
+    asm_walk = _row_at_top_shape(walk_rows, info["asm"]["tb_walk_shapes"])
+    asm_launches = info["asm"]["launches"]
+    dp_src = dict(route="cuda", source="volcanosv_tpu_torch/csrc/banded_dp.cu",
+                  replaces="volcanosv_tpu/ops/pallas/banded_dp.py:46")
+    walk_src = dict(route="cuda", source="volcanosv_tpu_torch/csrc/tb_walk.cu",
+                    replaces="volcanosv_tpu/ops/banded_align.py:291")
     # no single PyTorch call computes either function: library_ms is null
     kernels = [
-        dict(name="banded_dp", route="cuda",
-             source="volcanosv_tpu_torch/csrc/banded_dp.cu",
-             replaces="volcanosv_tpu/ops/pallas/banded_dp.py:46",
+        dict(name="banded_dp", **dp_src,
              design="warp (W <= 512)", launches=launches["banded_dp"],
              max_abs_err=max(r["max_abs_err"] for r in warp_rows),
              ms=head_dp["ms"], plain_ms=head_dp["plain_ms"],
              bound_ms=head_dp["bound_ms"], bound_by=head_dp["bound_by"],
              library_ms=None, shapes=warp_rows),
-        dict(name="banded_dp_group", route="cuda",
-             source="volcanosv_tpu_torch/csrc/banded_dp.cu",
-             replaces="volcanosv_tpu/ops/pallas/banded_dp.py:46",
+        dict(name="banded_dp_group", **dp_src,
              design="group (W > 512)", path="eval with ALT sequences",
-             launches=slice_info["eval_alt"]["launches"]["group"],
+             launches=info["slice"]["eval_alt"]["launches"]["group"],
              max_abs_err=max(r["max_abs_err"] for r in group_rows),
              ms=head_group["ms"], plain_ms=head_group["plain_ms"],
              bound_ms=head_group["bound_ms"],
              bound_by=head_group["bound_by"], library_ms=None,
              shapes=group_rows),
-        dict(name="tb_walk", route="cuda",
-             source="volcanosv_tpu_torch/csrc/tb_walk.cu",
-             replaces="volcanosv_tpu/ops/banded_align.py:291",
+        dict(name="tb_walk", **walk_src,
              launches=launches["tb_walk"],
              max_abs_err=max(r["max_abs_err"] for r in walk_rows),
              ms=head_walk["ms"], plain_ms=head_walk["plain_ms"],
@@ -671,9 +1085,21 @@ def main() -> int:
              library_ms=None, chain_ms=head_walk["chain_ms"],
              smem_latency_cycles=smem["cycles"], smem_latency_ns=smem["ns"],
              shapes=walk_rows),
+        dict(name="banded_dp_asm", **dp_src,
+             design=asm_dp["branch"], path="asm",
+             launches=asm_launches["banded_dp"],
+             max_abs_err=asm_dp["max_abs_err"], ms=asm_dp["ms"],
+             plain_ms=asm_dp["plain_ms"], bound_ms=asm_dp["bound_ms"],
+             bound_by=asm_dp["bound_by"], library_ms=None,
+             shapes=[asm_dp]),
+        dict(name="tb_walk_asm", **walk_src, path="asm",
+             launches=asm_launches["tb_walk"],
+             max_abs_err=asm_walk["max_abs_err"], ms=asm_walk["ms"],
+             plain_ms=asm_walk["plain_ms"], bound_ms=asm_walk["bound_ms"],
+             bound_by=asm_walk["bound_by"], library_ms=None,
+             shapes=[asm_walk]),
     ]
-    _log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"slice": slice_info}))
+    print(json.dumps(info))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,12 +14,19 @@ and the traceback bytes of rows < qlen must be bit-equal (tolerance 0).
 The walk's two designs (a warp per alignment over tiles staged in shared
 memory, or a thread per alignment) are held to the plain walk on DP
 tracebacks with long gaps and on random tracebacks, at the bucketed, the
-full and a cut step bound: packed streams and done flags bit-equal."""
+full and a cut step bound: packed streams and done flags bit-equal.
+
+The `asm` path's torch-op device functions (the pair-HMM Viterbi, the MEC
+votes, the k-mer ops) run the same ops on the card as on the CPU: their
+outputs on the card equal the CPU's, the Viterbi's fp32 scores bit for
+bit."""
 import numpy as np
 import pytest
 import torch
 
 from volcanosv_tpu_torch.ops import banded_align as ba
+from volcanosv_tpu_torch.ops import kmer
+from volcanosv_tpu_torch.phasing import phase, realign
 
 DUAL = ba.Scores(match=2, mismatch=-4, gap_open=-4, gap_extend=-2,
                  gap_open2=-24, gap_extend2=-1)
@@ -352,3 +359,94 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         ba.tb_walk(torch.zeros((2, 8, 64), dtype=torch.uint8, device=cuda),
                    ln, ln, -32, 64, branch="block")
+
+
+def _viterbi_pairs(rng, B, R, W, err):
+    """Read segments drawn from their hap windows at error `err` (some
+    padded, some empty), N codes sprinkled in the windows."""
+    haps = rng.integers(0, 4, (B, W)).astype(np.int8)
+    haps[rng.random((B, W)) < 0.01] = 4
+    segs = np.full((B, R), 4, np.int8)
+    lens = rng.integers(0, R + 1, B).astype(np.int32)
+    for b in range(B):
+        s = haps[b, rng.integers(0, 5):][:lens[b]].copy()
+        mut = rng.random(len(s)) < err
+        s[mut] = rng.integers(0, 4, int(mut.sum()))
+        n = min(len(s), lens[b])
+        segs[b, :n] = s[:n]
+        segs[b, n:lens[b]] = rng.integers(0, 4, lens[b] - n)
+    return segs, lens, haps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("err", [0.002, 0.1])
+def test_viterbi_batch_card_equals_cpu(cuda, err):
+    """8192 pairs at the path's window (R = 57, W = 41): fp32 scores
+    bit-equal, and so the allele calls."""
+    segs, lens, haps = _viterbi_pairs(np.random.default_rng(int(err * 1e3)),
+                                      8192, 57, 41, err)
+    p = realign.PairHmmParams(err)
+    kw = dict(W=41, log_match=p.log_match, log_mis=p.log_mis,
+              log_ins=p.log_ins, a_mm=p.a_mm, a_gap=p.a_gap, a_ext=p.a_ext,
+              a_back=p.a_back)
+    got, want = (realign._viterbi_batch(
+        *(torch.from_numpy(x).to(dev) for x in (segs, lens, haps)), **kw)
+        .cpu().numpy() for dev in (cuda, "cpu"))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    alt = haps.copy()
+    alt[:, 20] = (alt[:, 20] + 1) % 4
+    np.testing.assert_array_equal(
+        realign.pairhmm_alleles(segs[:5000], lens[:5000], haps[:5000],
+                                alt[:5000], err, device=cuda),
+        realign.pairhmm_alleles(segs[:5000], lens[:5000], haps[:5000],
+                                alt[:5000], err, device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_iter", [0, 3, 30])
+def test_mec_phase_card_equals_cpu(cuda, n_iter):
+    """8 restarts over noisy observations: (h, a, mec) equal."""
+    rng = np.random.default_rng(n_iter)
+    n_reads, S, n_obs = 3000, 1200, 60000
+    truth_h = rng.choice([-1, 1], S)
+    truth_a = rng.choice([-1, 1], n_reads)
+    obs_read = rng.integers(0, n_reads, n_obs).astype(np.int64)
+    obs_snp = rng.integers(0, S, n_obs).astype(np.int32)
+    o = truth_a[obs_read] * truth_h[obs_snp]
+    o[rng.random(n_obs) < 0.15] *= -1
+    o[rng.random(n_obs) < 0.05] = 0
+    obs_allele = o.astype(np.int8)
+    h0 = phase.restart_inits(
+        phase.chain_init(obs_read, obs_snp, obs_allele, S), n_iter, 8)
+    got, want = (phase._mec_phase(
+        *(torch.from_numpy(x).to(dev)
+          for x in (obs_read, obs_snp, obs_allele, h0)),
+        n_reads=n_reads, n_iter=n_iter) for dev in (cuda, "cpu"))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [8, 12])
+def test_kmer_ops_card_equal_cpu(cuda, k):
+    """Every ops/kmer.py function on (64, 4096) codes with N runs and
+    padding, and on four count tables at 4^k: equal outputs."""
+    rng = np.random.default_rng(k)
+    codes = rng.integers(0, 4, (64, 4096)).astype(np.int8)
+    codes[rng.random(codes.shape) < 0.01] = 4
+    for b in range(64):
+        codes[b, int(rng.integers(2048, 4097)):] = 4
+    out = {}
+    for dev in (cuda, "cpu"):
+        c = torch.from_numpy(codes).to(dev)
+        h, v = kmer.kmer_hashes(c, k)
+        tabs = torch.stack([kmer.count_kmers_dense(h[i::4], v[i::4], k)
+                            for i in range(4)])
+        u = kmer.unique_mask(tabs)
+        s, first, runlen = kmer.distinct_runs(h, v)
+        out[str(dev)] = [x.cpu() for x in (
+            h, v, kmer.canonical_hashes(h, k), tabs, u, s, first, runlen,
+            kmer.overlap_scores(s, first, runlen, tabs, u))]
+    for g, w in zip(out[str(cuda)], out["cpu"]):
+        assert g.dtype == w.dtype
+        assert torch.equal(g, w)

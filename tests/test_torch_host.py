@@ -235,12 +235,36 @@ def _entry_point_calls(tmp_path):
     """Public entry point → a call of it on small valid inputs that leaves
     `device` at its default."""
     from volcanosv_tpu_torch import aligner, eval as port_eval
+    from volcanosv_tpu_torch.assembly import farm, olc
     from volcanosv_tpu_torch.ops import banded_align as ba
+    from volcanosv_tpu_torch.partition import partition
+    from volcanosv_tpu_torch.phasing import phase, pileup, realign
+    from volcanosv_tpu_torch.pipeline import asm
     from volcanosv_tpu_torch.vc import large_indel, redundancy
     pcfg = config.PipelineConfig.for_dtype("Hifi")
     pairs = [("ACGTACGT", "ACGTTCGT")]
     one = np.ones(1, np.int64)
+    codes = np.zeros(40, np.int8)
+    win = np.zeros((1, 3), np.int8)
+    polish = config.AlignConfig.preset("polish")
     return {
+        "pileup_chromosome": lambda: pileup.pileup_chromosome(
+            [], codes, pcfg.phasing),
+        "phase_chromosome": lambda: phase.phase_chromosome(
+            pileup.pileup_chromosome([], codes, pcfg.phasing, device="cpu"),
+            pcfg.phasing),
+        "pairhmm_alleles": lambda: realign.pairhmm_alleles(
+            np.zeros((1, 4), np.int8), np.ones(1, np.int32), win, win, 0.01),
+        "build_hap_tables": lambda: partition.build_hap_tables({}, 8),
+        "partition_reads": lambda: partition.partition_reads(
+            {}, {}, {}, [], pcfg.partition),
+        "consensus_poa_many": lambda: olc.consensus_poa_many([]),
+        "polish_many": lambda: olc.polish_many([], [], polish),
+        "polish_grouped": lambda: olc.polish_grouped({}, {}, polish),
+        "assemble_block": lambda: olc.assemble_block([], pcfg.assembly),
+        "run_assembly": lambda: farm.run_assembly({}, pcfg.assembly),
+        "assemble_chromosome": lambda: asm.assemble_chromosome(
+            [], codes, {}, pcfg),
         "Aligner": lambda: aligner.Aligner(
             {"chr1": "ACGT" * 200}, config.AlignConfig.preset("asm5")),
         "banded_align_cigars_dispatch":
@@ -270,7 +294,11 @@ def _entry_point_calls(tmp_path):
     "Aligner", "banded_align_cigars_dispatch", "banded_align_cigars",
     "banded_row0_auto", "edit_distance_batch_auto", "edit_distance_pairs",
     "edit_sim_batch", "find_redundant", "remove_redundancy_records",
-    "call_chromosome_raw", "call_chromosome", "evaluate", "evaluate_files"])
+    "call_chromosome_raw", "call_chromosome", "evaluate", "evaluate_files",
+    "pileup_chromosome", "phase_chromosome", "pairhmm_alleles",
+    "build_hap_tables", "partition_reads", "consensus_poa_many",
+    "polish_many", "polish_grouped", "assemble_block", "run_assembly",
+    "assemble_chromosome"])
 def test_entry_points_default_to_cuda(tmp_path, entry):
     """Every public entry point runs on the card unless asked for the CPU:
     without `device` on a host with no CUDA it raises before any work (the
@@ -294,3 +322,6 @@ def test_device_cuda_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["vc-large-indel", "--ref", str(tmp_path / "r.fa"),
               "--contig", str(tmp_path / "c.fa"), "-o", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["asm", "--ref", str(tmp_path / "r.fa"),
+              "--fastq", str(tmp_path / "r.fq"), "-o", str(tmp_path)])

@@ -1,15 +1,17 @@
 """Command-line drivers of the port — same subcommands, flags and output
 files as `volcanosv_tpu.cli`, plus `--device`:
 
+    python -m volcanosv_tpu_torch.cli asm --ref ref.fa (--fastq reads.fq | --bam reads.bam) \\
+        -o out/ [--hybrid_bed regions.bed] [--emit_fastqs] [--device cuda]
     python -m volcanosv_tpu_torch.cli vc-large-indel --ref ref.fa --contig contigs.fa \\
         [--fastq reads.fq | --bam reads.bam] -o out/ [--device cuda]
     python -m volcanosv_tpu_torch.cli eval --base truth.vcf --comp calls.vcf [--device cuda]
 
-`--device` names the torch device the DP kernels run on (default `cuda`);
-asking for CUDA on a host without it raises.  The drivers run in one
-process: each chromosome of the reference is called here, and the
-WGS-global coverage median is the host median of all chromosomes' values
-(the single-process path of the reference).
+`--device` names the torch device the device stages run on (default
+`cuda`); asking for CUDA on a host without it raises.  The drivers run in
+one process: each chromosome of the reference is assembled or called here,
+and the WGS-global coverage median is the host median of all chromosomes'
+values (the single-process path of the reference).
 
 The `--contig` FASTAs use the reference's contig naming contract
 (PS<pb>_<start>_<end>_hp{1,2}_<n>, or hp1/hp2-only names for whole-haplotype
@@ -85,9 +87,8 @@ def _reads_sigs_cached(args, cfg, reads_by_chrom, chroms):
     contract, volcanosv-vc-large-indel.py:18-19)."""
     if reads_by_chrom is None:
         return None
-    from .utils.checkpoint import CheckpointDir
     from .vc.reads_sig import extract_reads_signatures
-    ckpt = CheckpointDir(args.out_dir, resume=getattr(args, "resume", False))
+    ckpt = _ckpt(args)
     sigs = {}
     for chrom in chroms:
         name = f"reads_sig_{chrom}.tsv"
@@ -165,9 +166,130 @@ def _restrict_chroms(args, chroms: list[str], bed) -> list[str]:
     return chroms
 
 
+def _ckpt(args):
+    from .utils.checkpoint import CheckpointDir
+    return CheckpointDir(args.out_dir, resume=getattr(args, "resume", False))
+
+
 # ---------------------------------------------------------------------------
 # subcommands
 # ---------------------------------------------------------------------------
+
+def _run_asm(ref, read_seqs, args, device):
+    """phase → partition → assemble every chromosome on `device`.
+
+    Returns (contigs, phased SNP VcfRecords — the longshot-VCF-equivalent
+    output, README.md:237-238 — and each chromosome's read → (hap, block)).
+    Per-chromosome results checkpoint to <out_dir>/checkpoints/ and are
+    reused under --resume (the reference's log.txt skip-list contract,
+    General_Assembly_Workflow.py:530-547).  Writes <out_dir>/phased.bam
+    with HP/PS tags when any chromosome is assembled."""
+    from .io.bam import BamWriter
+    from .ops.pack import encode_seq
+    from .phasing import snp_vcf_records
+    from .pipeline.asm import assemble_chromosome
+    cfg = PipelineConfig.for_dtype(args.dtype)
+    ckpt = _ckpt(args)
+    bed = {}
+    if args.hybrid_bed:
+        from .io.bed import read_bed
+        bed = read_bed(args.hybrid_bed)
+    chroms = [args.chrom] if args.chrom else list(ref)
+    todo = [c for c in chroms
+            if not (ckpt.has(f"asm_{c}.fa") and ckpt.has(f"snps_{c}.vcf"))]
+    by_chrom, phased_writer = {}, None
+    if todo:
+        with stage_timer("align-reads", log):
+            by_chrom = _align_by_chrom(ref, read_seqs,
+                                       _read_preset(args.dtype), device,
+                                       chroms)
+        # phased BAM with HP/PS tags — longshot's '-O phased.bam' artifact
+        # (volcanosv-asm.py:75-80; tag semantics prepare_info_v1.py:42-63)
+        os.makedirs(args.out_dir, exist_ok=True)
+        phased_writer = BamWriter(os.path.join(args.out_dir, "phased.bam"),
+                                  list(ref), [len(s) for s in ref.values()])
+    results: dict[str, tuple[dict, list]] = {}
+    for chrom in chroms:
+        if chrom not in todo:
+            log.info("resume: reusing checkpointed assembly for %s", chrom)
+            results[chrom] = (ckpt.load_fasta(f"asm_{chrom}.fa"),
+                              ckpt.load_vcf(f"snps_{chrom}.vcf"))
+            continue
+        recs = by_chrom.get(chrom, [])
+        if not recs:
+            ckpt.save_fasta(f"asm_{chrom}.fa", {})
+            ckpt.save_vcf(f"snps_{chrom}.vcf", [])
+            results[chrom] = ({}, [])
+            continue
+        with stage_timer(f"asm[{chrom}]", log):
+            ctgs, ph, part = assemble_chromosome(
+                recs, encode_seq(ref[chrom]), read_seqs, cfg,
+                hybrid_bed=bed.get(chrom), device=device)
+        if args.emit_fastqs:
+            # per-hap FASTQs (write_fastq_asm_general.py:97-142 parity;
+            # double-assigned reads are duplicated into both haps)
+            from .io.fastq import write_fastq
+            fq_dir = os.path.join(args.out_dir, "fastq_by_hap")
+            os.makedirs(fq_dir, exist_ok=True)
+            by_hap: dict[str, list] = {}
+            for rname, haps in part.assignment.items():
+                seq = read_seqs.get(rname)
+                if seq:
+                    for h in haps:
+                        by_hap.setdefault(h, []).append((rname, seq, None))
+            for h, entries in by_hap.items():
+                write_fastq(os.path.join(fq_dir, f"{h}.fastq"), entries)
+        snps = snp_vcf_records(chrom, ph)
+        ckpt.save_fasta(f"asm_{chrom}.fa", ctgs)
+        ckpt.save_vcf(f"snps_{chrom}.vcf", snps)
+        results[chrom] = (ctgs, snps)
+        hp_of = {n: (int(ph.read_hap[i]), int(ph.read_block[i]))
+                 for i, n in enumerate(ph.read_names)
+                 if ph.read_hap[i] != 0}
+        # read_hp_og.p-equivalent artifact (prepare_info_v1.py:79-85) —
+        # also drives the phase-aware GT downgrade at vc time
+        ckpt.save_read_hp(f"read_hp_{chrom}.tsv", hp_of)
+        for r in recs:
+            hp = hp_of.get(r.name)
+            if hp is not None:
+                r.tags = dict(r.tags or {})
+                r.tags["HP"] = hp[0]
+                r.tags["PS"] = hp[1]
+            phased_writer.write(r)
+    if phased_writer is not None:
+        phased_writer.close()
+    contigs: dict[str, str] = {}
+    snp_records = []
+    read_hp_by_chrom: dict[str, dict[str, int]] = {}
+    for chrom in chroms:
+        ctgs, snps = results[chrom]
+        if os.path.exists(ckpt.path(f"read_hp_{chrom}.tsv")):
+            read_hp_by_chrom[chrom] = ckpt.load_read_hp(
+                f"read_hp_{chrom}.tsv")
+        snp_records += snps
+        for name, seq in ctgs.items():
+            while name in contigs:            # cross-chrom PS id collision
+                name += "b"
+            contigs[name] = seq
+    return contigs, snp_records, read_hp_by_chrom
+
+
+def cmd_asm(args) -> int:
+    from .io.fasta import read_fasta, write_fasta
+    device = resolve_device(args.device)
+    ref = read_fasta(args.ref)
+    read_seqs = _load_reads(args)
+    if not read_seqs:
+        log.error("asm requires --fastq or --bam")
+        return 2
+    contigs, snp_records, _read_hp = _run_asm(ref, read_seqs, args, device)
+    _vcf_out(args.out_dir, "phased_snps.vcf", ref, snp_records)
+    os.makedirs(args.out_dir, exist_ok=True)
+    out = os.path.join(args.out_dir, "final_contigs.fa")
+    write_fasta(out, contigs)
+    log.info("assembly: %d contigs → %s", len(contigs), out)
+    return 0
+
 
 def cmd_vc_large_indel(args) -> int:
     from .io.fasta import read_fasta
@@ -216,23 +338,26 @@ def _add_device(p) -> None:
                         "raises when absent) or cpu")
 
 
-def _add_common(p) -> None:
+def _add_common(p, contig: bool) -> None:
     p.add_argument("--ref", required=True, help="reference FASTA")
     p.add_argument("--out_dir", "-o", required=True)
     p.add_argument("--dtype", "-d", default="Hifi",
                    choices=["Hifi", "CLR", "ONT"])
-    p.add_argument("--contig", required=True,
-                   help="hp1/hp2-named contig FASTA (otherasm contract)")
-    p.add_argument("--asm", default="volcano", choices=["volcano", "other"],
-                   help="coverage-band profile row (filter_para.csv asm "
-                        "column; 'other' for imported assemblies)")
-    p.add_argument("--chrom",
-                   help="restrict calling to one chromosome (single-chrom "
-                        "mode, volcanosv-vc-large-indel.py:280)")
-    p.add_argument("--bed",
-                   help="BED restricting calling + the GT-signature task "
-                        "grid (sig_extract -include_bed, "
-                        "filter_GT_correction.py:67-82)")
+    if contig:
+        p.add_argument("--contig", required=True,
+                       help="hp1/hp2-named contig FASTA (otherasm contract)")
+        p.add_argument("--asm", default="volcano",
+                       choices=["volcano", "other"],
+                       help="coverage-band profile row (filter_para.csv asm "
+                            "column; 'other' for imported assemblies)")
+        p.add_argument("--chrom",
+                       help="restrict calling to one chromosome "
+                            "(single-chrom mode, "
+                            "volcanosv-vc-large-indel.py:280)")
+        p.add_argument("--bed",
+                       help="BED restricting calling + the GT-signature "
+                            "task grid (sig_extract -include_bed, "
+                            "filter_GT_correction.py:67-82)")
     p.add_argument("--fastq", help="reads FASTQ(.gz)")
     p.add_argument("--bam", help="reads BAM")
     p.add_argument("--resume", action="store_true",
@@ -250,8 +375,19 @@ def build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA port of the diploid SV engine")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("asm", help="phase + partition + assemble")
+    _add_common(p, contig=False)
+    p.add_argument("--chrom", help="restrict to one chromosome")
+    p.add_argument("--hybrid_bed",
+                   help="BED of regions assembled with the in-BED profile "
+                        "(hybrid mode, volcanosv-asm_hybrid.py parity)")
+    p.add_argument("--emit_fastqs", action="store_true",
+                   help="also write fastq_by_hap/<hap>.fastq per haplotype "
+                        "(write_fastq_asm_general.py parity)")
+    p.set_defaults(fn=cmd_asm)
+
     p = sub.add_parser("vc-large-indel", help="large-indel calling (≥30bp)")
-    _add_common(p)
+    _add_common(p, contig=True)
     p.set_defaults(fn=cmd_vc_large_indel)
 
     p = sub.add_parser("eval", help="truvari-equivalent SV benchmark")
