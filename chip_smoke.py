@@ -642,6 +642,7 @@ def phase3_cuda_vs_cpu(seed: int) -> None:
         raise AssertionError("phase 3: cuda and cpu VCFs differ")
     _log(f"phase 3: VCFs byte-identical ({len(vcfs[0])} bytes)")
 
+
 # The asm path's torch-op device functions (the JAX package's jitted XLA
 # code): module of the call site, attribute, and which call's inputs phase
 # 4b keeps (None: the first).

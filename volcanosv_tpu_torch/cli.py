@@ -179,7 +179,7 @@ def _run_asm(ref, read_seqs, args, device):
     """phase → partition → assemble every chromosome on `device`.
 
     Returns (contigs, phased SNP VcfRecords — the longshot-VCF-equivalent
-    output, README.md:237-238 — and each chromosome's read → (hap, block)).
+    output, README.md:237-238).
     Per-chromosome results checkpoint to <out_dir>/checkpoints/ and are
     reused under --resume (the reference's log.txt skip-list contract,
     General_Assembly_Workflow.py:530-547).  Writes <out_dir>/phased.bam
@@ -260,18 +260,14 @@ def _run_asm(ref, read_seqs, args, device):
         phased_writer.close()
     contigs: dict[str, str] = {}
     snp_records = []
-    read_hp_by_chrom: dict[str, dict[str, int]] = {}
     for chrom in chroms:
         ctgs, snps = results[chrom]
-        if os.path.exists(ckpt.path(f"read_hp_{chrom}.tsv")):
-            read_hp_by_chrom[chrom] = ckpt.load_read_hp(
-                f"read_hp_{chrom}.tsv")
         snp_records += snps
         for name, seq in ctgs.items():
             while name in contigs:            # cross-chrom PS id collision
                 name += "b"
             contigs[name] = seq
-    return contigs, snp_records, read_hp_by_chrom
+    return contigs, snp_records
 
 
 def cmd_asm(args) -> int:
@@ -282,7 +278,7 @@ def cmd_asm(args) -> int:
     if not read_seqs:
         log.error("asm requires --fastq or --bam")
         return 2
-    contigs, snp_records, _read_hp = _run_asm(ref, read_seqs, args, device)
+    contigs, snp_records = _run_asm(ref, read_seqs, args, device)
     _vcf_out(args.out_dir, "phased_snps.vcf", ref, snp_records)
     os.makedirs(args.out_dir, exist_ok=True)
     out = os.path.join(args.out_dir, "final_contigs.fa")
