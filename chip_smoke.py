@@ -64,9 +64,13 @@ Phase 4  `asm --device cuda` (pileup with pair-HMM realignment, MEC
          (4^12 int32 each, up to 8 resident) are at full size at any
          length.  With --profile the `asm` run is traced too.
 Phase 4b `asm` with `--device cuda` and with `--device cpu` on the
-         pipeline test's recipe (80 kb, 24x, 7 kb reads, seed 21):
-         final_contigs.fa, phased_snps.vcf, read_hp_chr1.tsv and phased.bam
-         byte-identical.  Then each torch-op device function of the path on
+         pipeline test's recipe (80 kb, 24x, 7 kb reads, seed 21), once
+         with HiFi reads (`-d Hifi`, error 0.001) and once with CLR reads
+         (`-d CLR`, substitutions 0.09 and indels 0.045, where every
+         candidate site is realigned through the pair-HMM Viterbi, which
+         must have been called on the card): final_contigs.fa,
+         phased_snps.vcf, read_hp_chr1.tsv and phased.bam byte-identical
+         in each.  Then each torch-op device function of the path on
          the card against the CPU, timed on both beside its bound: the
          pair-HMM Viterbi (8192 pairs, R = 57, W = 41, error 0.002 and 0.1;
          scores bit-equal), the MEC votes (8 restarts on phase 4's largest
@@ -74,8 +78,7 @@ Phase 4b `asm` with `--device cuda` and with `--device cpu` on the
          chunk, the unique mask of four tables, and the distinct runs and
          4-way vote of one chunk of 64 reads (phase 4's own inputs; equal).
 
-`--phases` runs a subset (e.g. `--phases 4,4b`) and then prints no result
-lines.  Any failure raises.  On success the last four lines of standard
+Any failure raises.  On success the last four lines of standard
 output are the phases' summary (launches by shape, stage times, eval), the
 card's `nvidia-smi` name and power limit, one JSON object with the kernels'
 launches, errors, times and bounds, and the `{"ok": true, ...}` line.
@@ -134,7 +137,6 @@ WALK_OPS_PER_STEP = 8
 # the main path's kernel launches on the 10 Mb slice with the default seed
 # (the path is deterministic)
 EXPECTED_LAUNCHES = {"banded_dp": 17, "tb_walk": 15}
-PHASES = ("1", "2", "2b", "3", "4", "4b")
 
 
 def _log(msg: str) -> None:
@@ -293,7 +295,7 @@ def phase1_kernels(seed: int):
     row0 = dict(with_traceback=False, row0_scores=True)
     score_only = dict(with_traceback=False)
     edit = ba.Scores.edit()
-    cases = [  # mode, B, M, W, d_lo, scores, DP flags, half unrelated
+    cases = [  # case, B, M, W, d_lo, scores, DP flags, half unrelated
         ("traceback", 4096, 256, 256, -128, asm5, {}, False),
         ("traceback", 256, 8192, 256, -128, asm5, {}, False),
         ("row0", 1024, 1024, 128, -64, asm5, row0, False),
@@ -337,7 +339,8 @@ def phase1_kernels(seed: int):
         torch.cuda.synchronize()
         return out, s.elapsed_time(e)
 
-    for mode, B, M, W, d_lo, sc, kw, unrelated in cases:
+    for case, B, M, W, d_lo, sc, kw, unrelated in cases:
+        mode = ba.dp_mode(sc, **kw)     # as banded_dp.shapes records it
         q, t, ql, tl = _pairs(rng, B, M, W, d_lo, unrelated)
         args = [torch.from_numpy(x).to(dev) for x in (q, t, ql, tl)]
         plain, plain_ms = timed_once(
@@ -357,7 +360,7 @@ def phase1_kernels(seed: int):
                 err = max(err, int((kern[2][rows].int()
                                     - plain[2][rows].int()).abs().max()))
             if err:
-                raise AssertionError(f"banded_dp {mode} B={B} M={M} W={W} "
+                raise AssertionError(f"banded_dp {case} B={B} M={M} W={W} "
                                      f"{br}: kernel != plain (max abs err "
                                      f"{err})")
         times = {br: [] for br in branches}
@@ -368,7 +371,8 @@ def phase1_kernels(seed: int):
         bound = _dp_bound(ql, tl, M, W, d_lo, _dp_kind(sc),
                           kw.get("with_traceback", True),
                           kw.get("row0_scores", False))
-        row = dict(mode=mode, B=B, M=M, W=W, d_lo=d_lo, unrelated=unrelated,
+        row = dict(case=case, mode=mode, B=B, M=M, W=W, d_lo=d_lo,
+                   unrelated=unrelated,
                    branch=taken, max_abs_err=err, ms=ms,
                    ms_by_branch={br: statistics.mean(v)
                                  for br, v in times.items()},
@@ -389,7 +393,7 @@ def phase1_kernels(seed: int):
         pcut, dcut = ba.tb_walk_plain(tb, args[2], args[3], d_lo, n_cut)
         ops_cut = ba._unpack_ops(pcut.cpu().numpy())
         if not bool(dp.all()):
-            raise AssertionError(f"tb_walk {mode}: plain walks unfinished "
+            raise AssertionError(f"tb_walk {case}: plain walks unfinished "
                                  "at the bucketed bound")
         werr = 0
         for br in ("thread", "warp", "auto"):
@@ -402,7 +406,7 @@ def phase1_kernels(seed: int):
                                             - want).max()))
                 if werr or not torch.equal(dk, want_done):
                     raise AssertionError(
-                        f"tb_walk {mode} B={B} M={M} W={W} {br} at "
+                        f"tb_walk {case} B={B} M={M} W={W} {br} at "
                         f"{steps} steps: kernel != plain (streams or done)")
                 if steps == n_steps:
                     ops_full = ops_k
@@ -412,7 +416,7 @@ def phase1_kernels(seed: int):
         cig_k = ba._rle_columns(ops_k, B)
         cig_p = ba._rle_columns(ba._unpack_ops(pp2.cpu().numpy()), B)
         if cig_k != cig_p:
-            raise AssertionError(f"{mode}: CIGARs differ between kernels "
+            raise AssertionError(f"{case}: CIGARs differ between kernels "
                                  "and plain versions")
         wtimes = {"thread": [], "warp": []}
         for br in ("thread", "warp", "warp", "thread"):
@@ -422,7 +426,8 @@ def phase1_kernels(seed: int):
         wms = statistics.mean(wtimes[wtaken])
         wbound = _walk_bound(ops_k, n_steps, B)
         chain_ms = int(lengths.max()) * smem["ns"] * 1e-6
-        wrow = dict(mode=mode, B=B, M=M, W=W, n_steps=n_steps, n_cut=n_cut,
+        wrow = dict(case=case, mode=mode, B=B, M=M, W=W, n_steps=n_steps,
+                    n_cut=n_cut,
                     cut_unfinished=int((~dcut).sum()), branch=wtaken,
                     max_abs_err=werr, ms=wms,
                     ms_by_branch={br: statistics.mean(v)
@@ -828,8 +833,10 @@ def _card_vs_cpu(name: str, fn, args, equal, bound: dict) -> dict:
 
 
 def _viterbi_pairs(rng, B: int, R: int, W: int, err: float):
-    """Read segments drawn from their hap windows at error `err` (some
-    padded, some empty), N codes sprinkled in the windows."""
+    """Read segments drawn from their hap windows with substitutions at
+    rate `err` and deletions at `err / 2` (some padded, some empty), N codes
+    sprinkled in the windows; tests/torch_inputs.py::viterbi_pairs, copied
+    since the smoke run imports no tests."""
     import numpy as np
     haps = rng.integers(0, 4, (B, W)).astype(np.int8)
     haps[rng.random((B, W)) < 0.01] = 4
@@ -839,6 +846,7 @@ def _viterbi_pairs(rng, B: int, R: int, W: int, err: float):
         sg = haps[b, rng.integers(0, 5):][:lens[b]].copy()
         mut = rng.random(len(sg)) < err
         sg[mut] = rng.integers(0, 4, int(mut.sum()))
+        sg = sg[rng.random(len(sg)) > err / 2]
         n = min(len(sg), lens[b])
         segs[b, :n] = sg[:n]
         segs[b, n:lens[b]] = rng.integers(0, 4, lens[b] - n)
@@ -853,21 +861,18 @@ def _equal_tensors(got, want) -> bool:
                for g, w in zip(got, want))
 
 
-def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
-    """`asm` on cuda and cpu (byte-identical outputs), then each torch-op
-    device function of the path, card against CPU, timed beside its
-    bound."""
-    import math
-
+def _asm_cuda_vs_cpu(d: str, dtype: str, err: float) -> dict:
+    """`asm -d dtype` on cuda and on cpu on the pipeline test's recipe (80
+    kb, 24x, 7 kb reads, seed 21) with substitutions at `err` and indels at
+    `err / 2`: the four outputs must be byte-identical.  Returns the times,
+    the stage times, the output sizes and the torch-op device functions'
+    calls on the card."""
     import numpy as np
-    import torch
 
     from volcanosv_tpu_torch import cli, sim
     from volcanosv_tpu_torch.io.fasta import write_fasta
     from volcanosv_tpu_torch.io.fastq import write_fastq
-    from volcanosv_tpu_torch.ops import kmer
-    from volcanosv_tpu_torch.phasing import phase, realign
-    d = os.path.join(WORK, "asm_cuda_vs_cpu")
+    from volcanosv_tpu_torch.utils.logging import STAGE_TIMES
     os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(21)        # tests/test_pipeline_e2e.py
     ref = sim.random_genome(rng, 80_000)
@@ -877,17 +882,24 @@ def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
     hap1, hap2, _ = sim.implant_snps(rng, hap1, hap2, rate=1 / 1200)
     reads = sim.simulate_reads(rng, {1: hap1, 2: hap2}, coverage=24.0,
                                read_len=7_000, read_len_sd=900,
-                               sub_rate=0.001, indel_rate=0.0005)
+                               sub_rate=err, indel_rate=err / 2)
     write_fasta(os.path.join(d, "ref.fa"), ref)
     write_fastq(os.path.join(d, "reads.fastq"),
                 ((n, s, None) for n, s, *_ in reads))
-    outs, secs = {}, {}
+    outs, secs, calls, stages = {}, {}, {}, {}
     for device in ("cuda", "cpu"):
         out = os.path.join(d, f"out_{device}")
+        undo = _watch(calls, {}) if device == "cuda" else (lambda: None)
+        STAGE_TIMES.clear()
         t0 = time.perf_counter()
-        if cli.main(_asm_args(d, out, device)) != 0:
-            raise AssertionError(f"asm --device {device} failed")
+        try:
+            rc = cli.main(_asm_args(d, out, device) + ["-d", dtype])
+        finally:
+            undo()
+        if rc != 0:
+            raise AssertionError(f"asm -d {dtype} --device {device} failed")
         secs[device] = time.perf_counter() - t0
+        stages[device] = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
         outs[device] = {}
         for name in ("final_contigs.fa", "phased_snps.vcf",
                      os.path.join("checkpoints", "read_hp_chr1.tsv"),
@@ -896,11 +908,37 @@ def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
                 outs[device][name] = fh.read()
     for name, want in outs["cpu"].items():
         if outs["cuda"][name] != want or not want:
-            raise AssertionError(f"phase 4b: asm {name} differs between "
-                                 "cuda and cpu")
-    info = dict(asm_s=secs, bytes={n: len(b) for n, b in outs["cpu"].items()})
+            raise AssertionError(f"phase 4b: asm -d {dtype} {name} differs "
+                                 "between cuda and cpu")
+    info = dict(dtype=dtype, err=err, asm_s=secs, stages=stages,
+                bytes={n: len(b) for n, b in outs["cpu"].items()},
+                device_function_calls=calls)
     _log(f"phase 4b: asm outputs byte-identical on cuda and cpu "
          f"{json.dumps(info)}")
+    return info
+
+
+def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
+    """`asm` on cuda and cpu (byte-identical outputs), HiFi and CLR, then
+    each torch-op device function of the path, card against CPU, timed
+    beside its bound."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from volcanosv_tpu_torch.ops import kmer
+    from volcanosv_tpu_torch.phasing import phase, realign
+    info = dict(hifi=_asm_cuda_vs_cpu(os.path.join(WORK, "asm_cuda_vs_cpu"),
+                                      "Hifi", 0.001))
+    # CLR (13.5% total error) realigns every candidate site through the
+    # pair-HMM (PhasingConfig.realign_all): the chain pileup -> Viterbi ->
+    # allele call -> MEC -> partition -> assembly, card against CPU
+    info["clr"] = _asm_cuda_vs_cpu(os.path.join(WORK, "asm_clr_cuda_vs_cpu"),
+                                   "CLR", 0.09)
+    if info["clr"]["device_function_calls"].get("_viterbi_batch", 0) <= 0:
+        raise AssertionError("phase 4b: asm -d CLR never called the "
+                             "pair-HMM Viterbi on the card")
 
     dev = torch.device("cuda")
     rows = []
@@ -983,10 +1021,12 @@ def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
 
 
 def _row_at_top_shape(rows: list[dict], shapes: list[dict]) -> dict:
-    """The phase-1 row at the (B, M, W) that a path launched most often."""
+    """The phase-1 row at the launch a path made most often: the same
+    (mode, design, B, M, W) for banded_dp, (design, B, M, W) for tb_walk."""
     top = max(shapes, key=lambda r: r["count"])
+    keys = [k for k in ("mode", "branch", "B", "M", "W") if k in top]
     for r in rows:
-        if (r["B"], r["M"], r["W"]) == (top["B"], top["M"], top["W"]):
+        if all(r[k] == top[k] for k in keys):
             return r
     raise AssertionError(f"phase 1 checks no shape the path launched most: "
                          f"{top}")
@@ -998,15 +1038,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace phases 2 and 4 with torch.profiler and "
                          "print the device time by kernel")
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of "
-                         f"{','.join(PHASES)}; a subset prints no result "
-                         "lines")
     args = ap.parse_args()
-    phases = args.phases.split(",")
-    if not set(phases) <= set(PHASES) or "2b" in phases and "2" not in phases \
-            or "4b" in phases and "4" not in phases:
-        ap.error(f"--phases: a subset of {PHASES} (2b needs 2, 4b needs 4)")
     import torch
     if not torch.cuda.is_available():
         _log("chip_smoke: no CUDA device")
@@ -1032,22 +1064,13 @@ def main() -> int:
          f"({cuda_build.build_dir()}) on {smi}")
 
     info = {}
-    if "1" in phases:
-        dp_rows, walk_rows, smem = phase1_kernels(args.seed)
-    if "2" in phases:
-        launches, info["slice"] = phase2_slice(args.seed, args.profile)
-    if "2b" in phases:
-        info["slice"]["eval_alt"] = phase2b_eval_alt()
-    if "3" in phases:
-        phase3_cuda_vs_cpu(args.seed)
-    if "4" in phases:
-        info["asm"], kept = phase4_asm(args.seed, args.profile)
-    if "4b" in phases:
-        info["asm_cuda_vs_cpu"] = phase4b_asm_cuda_vs_cpu(args.seed, kept)
+    dp_rows, walk_rows, smem = phase1_kernels(args.seed)
+    launches, info["slice"] = phase2_slice(args.seed, args.profile)
+    info["slice"]["eval_alt"] = phase2b_eval_alt()
+    phase3_cuda_vs_cpu(args.seed)
+    info["asm"], kept = phase4_asm(args.seed, args.profile)
+    info["asm_cuda_vs_cpu"] = phase4b_asm_cuda_vs_cpu(args.seed, kept)
     _log(f"total {time.perf_counter() - t_start:.1f} s")
-    if phases != list(PHASES):
-        _log(json.dumps(info))
-        return 0
 
     warp_rows = [r for r in dp_rows if r["branch"] == "warp"]
     group_rows = [r for r in dp_rows if r["branch"] == "group"]

@@ -27,6 +27,7 @@ import torch
 from volcanosv_tpu_torch.ops import banded_align as ba
 from volcanosv_tpu_torch.ops import kmer
 from volcanosv_tpu_torch.phasing import phase, realign
+from torch_inputs import viterbi_pairs
 
 DUAL = ba.Scores(match=2, mismatch=-4, gap_open=-4, gap_extend=-2,
                  gap_open2=-24, gap_extend2=-1)
@@ -361,30 +362,13 @@ def test_wrappers_reject_bad_inputs(cuda):
                    ln, ln, -32, 64, branch="block")
 
 
-def _viterbi_pairs(rng, B, R, W, err):
-    """Read segments drawn from their hap windows at error `err` (some
-    padded, some empty), N codes sprinkled in the windows."""
-    haps = rng.integers(0, 4, (B, W)).astype(np.int8)
-    haps[rng.random((B, W)) < 0.01] = 4
-    segs = np.full((B, R), 4, np.int8)
-    lens = rng.integers(0, R + 1, B).astype(np.int32)
-    for b in range(B):
-        s = haps[b, rng.integers(0, 5):][:lens[b]].copy()
-        mut = rng.random(len(s)) < err
-        s[mut] = rng.integers(0, 4, int(mut.sum()))
-        n = min(len(s), lens[b])
-        segs[b, :n] = s[:n]
-        segs[b, n:lens[b]] = rng.integers(0, 4, lens[b] - n)
-    return segs, lens, haps
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("err", [0.002, 0.1])
 def test_viterbi_batch_card_equals_cpu(cuda, err):
     """8192 pairs at the path's window (R = 57, W = 41): fp32 scores
     bit-equal, and so the allele calls."""
-    segs, lens, haps = _viterbi_pairs(np.random.default_rng(int(err * 1e3)),
-                                      8192, 57, 41, err)
+    segs, lens, haps = viterbi_pairs(np.random.default_rng(int(err * 1e3)),
+                                     8192, 57, 41, err)
     p = realign.PairHmmParams(err)
     kw = dict(W=41, log_match=p.log_match, log_mis=p.log_mis,
               log_ins=p.log_ins, a_mm=p.a_mm, a_gap=p.a_gap, a_ext=p.a_ext,

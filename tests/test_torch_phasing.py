@@ -30,6 +30,7 @@ from volcanosv_tpu_torch.io.vcf import make_header, write_vcf
 from volcanosv_tpu_torch.phasing import phase, pileup, realign, snp_vcf
 from volcanosv_tpu_torch.utils import threefry
 from tests.test_realign import _mk_ref, _reads
+from torch_inputs import viterbi_pairs
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -60,29 +61,11 @@ def test_threefry_matches_jax_random(seed):
                                                  jnp.int32)))
 
 
-def _viterbi_inputs(rng, B, R, W, err):
-    """Read segments drawn from their hap windows at error `err` (some
-    padded, some empty), N codes sprinkled in the windows."""
-    haps = rng.integers(0, 4, (B, W)).astype(np.int8)
-    haps[rng.random((B, W)) < 0.01] = 4
-    segs = np.full((B, R), 4, np.int8)
-    lens = rng.integers(0, R + 1, B).astype(np.int32)
-    for b in range(B):
-        s = haps[b, rng.integers(0, 5):][:lens[b]].copy()
-        mut = rng.random(len(s)) < err
-        s[mut] = rng.integers(0, 4, int(mut.sum()))
-        s = s[rng.random(len(s)) > err / 2]
-        n = min(len(s), lens[b])
-        segs[b, :n] = s[:n]
-        segs[b, n:lens[b]] = rng.integers(0, 4, lens[b] - n)
-    return segs, lens, haps
-
-
 @pytest.mark.parametrize("err", [0.001, 0.1])
 def test_viterbi_batch_bit_equal(err):
     """fp32 scores bit-equal at the path's window (W = 41, R = 57)."""
-    segs, lens, haps = _viterbi_inputs(np.random.default_rng(int(err * 1e3)),
-                                       1024, 57, 41, err)
+    segs, lens, haps = viterbi_pairs(np.random.default_rng(int(err * 1e3)),
+                                     1024, 57, 41, err)
     p = ref_realign.PairHmmParams(err)
     kw = dict(W=41, log_match=p.log_match, log_mis=p.log_mis,
               log_ins=p.log_ins, a_mm=p.a_mm, a_gap=p.a_gap, a_ext=p.a_ext,

@@ -77,10 +77,9 @@ def _emit_overlap(overlaps, qi, ti, la, lb, strand, score,
 def _find_overlaps(seqs: list[str], cfg: AssemblyConfig,
                    acfg: AlignConfig,
                    group_of: np.ndarray | None = None) -> list[_Overlap]:
-    """All-vs-all dovetail overlaps via the shared minimizer+chain core.
-
-    One native chain_segments call per query chains every (target, strand)
-    anchor segment at once (was one python chain_anchors call per pair).
+    """All-vs-all dovetail overlaps via the shared minimizer+chain core:
+    one native ava_overlaps call, or per-read python chaining where the
+    native lib did not build.
 
     group_of: optional per-read group id — overlaps are only sought within
     a group.  Groups are processed as independent sub-pools with their own
@@ -107,14 +106,11 @@ def _find_overlaps(seqs: list[str], cfg: AssemblyConfig,
     lib = get_lib()
     codes = [encode_seq(s) for s in seqs]
     overlaps: list[_Overlap] = []
-    k = acfg.k
     qlens = np.array([len(c) for c in codes], np.int64)
-    group_of = None
 
-    if lib is not None and hasattr(lib, "ava_overlaps"):
+    if lib is not None:
         # fused native path: sketch + index + expansion + segment chaining
-        # in one call (ava.cpp) — the numpy pipeline below materializes
-        # ~10M-anchor arrays per 1 Mb group just to feed chain_segments
+        # in one call (ava.cpp)
         from ..native import ava_overlaps_np
         a, b, strand, score, q_s, q_e, t_s, t_e = ava_overlaps_np(
             lib, codes, acfg)
@@ -127,124 +123,30 @@ def _find_overlaps(seqs: list[str], cfg: AssemblyConfig,
         overlaps.sort(key=lambda o: (o.a, o.b))
         return overlaps
 
+    # no native lib: per-read python chaining
     index = MinimizerIndex.build({str(i): c for i, c in enumerate(codes)},
                                  acfg.k, acfg.w)
-
-    if lib is None or not hasattr(lib, "chain_segments"):
-        # fallback: per-read python chaining (oracle path)
-        for qi, qc in enumerate(codes):
-            pos, h, st = sketch_np(qc, k, acfg.w)
-            if len(pos) == 0:
-                continue
-            t_pos, q_pos, strand = index.anchors(pos, h, st)
-            t_idx, t_local = index.global_to_local(t_pos)
-            keep = t_idx != qi
-            if group_of is not None:
-                keep &= group_of[t_idx] == group_of[qi]
-            if not keep.any():
-                continue
-            qlen = len(qc)
-            for ti in np.unique(t_idx[keep]):
-                sel = keep & (t_idx == ti)
-                chains = chain_anchors(t_local[sel], q_pos[sel], strand[sel],
-                                       qlen, acfg, max_chains=1)
-                if not chains:
-                    continue
-                ch = chains[0]
-                _emit_overlap(overlaps, qi, int(ti), qlen,
-                              len(codes[int(ti)]), ch.strand, ch.score,
-                              ch.q_start, ch.q_end, ch.t_start, ch.t_end,
-                              cfg)
-        return overlaps
-
-    # pooled path: sketch every read (native O(L) kernel), expand ALL
-    # anchors in one vectorized index lookup, and chain every
-    # (read, target, strand) anchor run in ONE native chain_segments call —
-    # no per-read python loop on the hot path
-    qp_all, qh_all, qs_all, qr_all = [], [], [], []
     for qi, qc in enumerate(codes):
-        pos, h, st = sketch_np(qc, k, acfg.w)
-        if len(pos):
-            qp_all.append(pos)
-            qh_all.append(h)
-            qs_all.append(st.astype(np.int8))
-            qr_all.append(np.full(len(pos), qi, np.int64))
-    if not qp_all:
-        return overlaps
-    qpos = np.concatenate(qp_all)
-    qhash = np.concatenate(qh_all)
-    qstrand = np.concatenate(qs_all)
-    qread = np.concatenate(qr_all)
-
-    lo, hi = index.lookup(qhash)
-    cnt = np.minimum(hi - lo, 64)
-    total = int(cnt.sum())
-    if total == 0:
-        return overlaps
-    rep = np.repeat(np.arange(len(qhash)), cnt)
-    offs = np.arange(total) - np.repeat(np.cumsum(cnt) - cnt, cnt)
-    flat = np.repeat(lo, cnt) + offs
-    t_gpos = index.sorted_pos[flat]
-    t_strand = index.sorted_strand[flat]
-    t_idx, t_local = index.global_to_local(t_gpos)
-    q_read = qread[rep]
-    keep = t_idx != q_read
-    if group_of is not None:
-        keep &= group_of[t_idx] == group_of[q_read]
-    if not keep.any():
-        return overlaps
-    ti = t_idx[keep]
-    tl = t_local[keep]
-    qr = q_read[keep]
-    qp = qpos[rep][keep]
-    sa = np.where(t_strand[keep] == qstrand[rep][keep], 1, -1).astype(np.int64)
-    qlen_r = qlens[qr]
-    qp2 = np.where(sa == -1, qlen_r - k - qp, qp)
-
-    order = np.lexsort((qp2, tl, sa, ti, qr))
-    qr_o, ti_o, tl_o, qp_o, sa_o = (qr[order], ti[order], tl[order],
-                                    qp2[order], sa[order])
-    change = np.nonzero((qr_o[1:] != qr_o[:-1]) | (ti_o[1:] != ti_o[:-1])
-                        | (sa_o[1:] != sa_o[:-1]))[0] + 1
-    seg_off = np.concatenate([[0], change, [len(qr_o)]]).astype(np.int64)
-    n_seg = len(seg_off) - 1
-    score = np.zeros(n_seg, np.float32)
-    qlo = np.zeros(n_seg, np.int64)
-    qhi = np.zeros(n_seg, np.int64)
-    tlo = np.zeros(n_seg, np.int64)
-    thi = np.zeros(n_seg, np.int64)
-    nanch = np.zeros(n_seg, np.int32)
-    lib.chain_segments(np.ascontiguousarray(qp_o),
-                       np.ascontiguousarray(tl_o), seg_off, n_seg,
-                       k, 16, acfg.max_anchor_gap, acfg.chain_bandwidth,
-                       0.05, acfg.min_chain_anchors,
-                       score, qlo, qhi, tlo, thi, nanch)
-    seg_qr = qr_o[seg_off[:-1]]
-    seg_ti = ti_o[seg_off[:-1]]
-    seg_sa = sa_o[seg_off[:-1]]
-    passing = (score >= acfg.min_chain_score) & \
-              (nanch >= acfg.min_chain_anchors)
-    # one chain per (read, target); prefer the + strand
-    best_for: dict[tuple[int, int], int] = {}
-    for s in np.nonzero(passing)[0]:
-        key = (int(seg_qr[s]), int(seg_ti[s]))
-        if key not in best_for or int(seg_sa[best_for[key]]) == -1:
-            if key in best_for and int(seg_sa[s]) == -1:
+        pos, h, st = sketch_np(qc, acfg.k, acfg.w)
+        if len(pos) == 0:
+            continue
+        t_pos, q_pos, strand = index.anchors(pos, h, st)
+        t_idx, t_local = index.global_to_local(t_pos)
+        keep = t_idx != qi
+        if not keep.any():
+            continue
+        qlen = len(qc)
+        for ti in np.unique(t_idx[keep]):
+            sel = keep & (t_idx == ti)
+            chains = chain_anchors(t_local[sel], q_pos[sel], strand[sel],
+                                   qlen, acfg, max_chains=1)
+            if not chains:
                 continue
-            best_for[key] = int(s)
-    for (qi, t), s in best_for.items():
-        strand_s = int(seg_sa[s])
-        qlen = int(qlens[qi])
-        q_end_or = int(qhi[s]) + k
-        q_start_or = int(qlo[s])
-        if strand_s == -1:
-            fq_start, fq_end = qlen - q_end_or, qlen - q_start_or
-        else:
-            fq_start, fq_end = q_start_or, q_end_or
-        _emit_overlap(overlaps, qi, t, qlen, len(codes[t]), strand_s,
-                      float(score[s]), fq_start, fq_end,
-                      int(tlo[s]), int(thi[s]) + k, cfg)
-    overlaps.sort(key=lambda o: (o.a, o.b))
+            ch = chains[0]
+            _emit_overlap(overlaps, qi, int(ti), qlen,
+                          len(codes[int(ti)]), ch.strand, ch.score,
+                          ch.q_start, ch.q_end, ch.t_start, ch.t_end,
+                          cfg)
     return overlaps
 
 
