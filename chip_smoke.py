@@ -77,6 +77,25 @@ Phase 4b `asm` with `--device cuda` and with `--device cpu` on the
          observation set), the k-mer hashes and count of one table-build
          chunk, the unique mask of four tables, and the distinct runs and
          4-way vote of one chunk of 64 reads (phase 4's own inputs; equal).
+Phase 5  `run --device cuda` (reads -> asm -> the large-indel, small-indel
+         and complex-SV callers -> merged VCF) on the golden recipe of
+         tests/test_golden_e2e.py (4 x 250 kb, every SV type, a
+         translocation, small indels, HiFi reads at 30x, 9 kb), simulated
+         by the port's `sim`, whose truth.vcf must be the pinned
+         tests/data/golden_truth.vcf; then the golden test's gates through
+         the port's eval: SV F1 and recall >= 0.99, GT >= 0.98, small-indel
+         recall >= 0.93, precision >= 0.95 and GT >= 0.90, SNP recall,
+         precision and zygosity >= 0.95, switch error <= 0.02, the
+         translocation as a 1|1 reciprocal BND pair.  Stage times, the DP
+         launches by shape, and those made inside the complex-SV stage
+         (counted around call_complex_svs), which must include the
+         haplotype pairing's edit distances at W = 128.  With --profile
+         the run is traced too.
+Phase 5b `run` with `--device cuda` and with `--device cpu` on
+         tests/test_torch_run.py's recipe (2 x 50 kb, an INV, a DUP, a
+         translocation and small indels, 20x): the merged VCF, the three
+         callers' VCFs, final_contigs.fa, phased_snps.vcf and phased.bam
+         byte-identical.
 
 Any failure raises.  On success the last four lines of standard
 output are the phases' summary (launches by shape, stage times, eval), the
@@ -323,6 +342,11 @@ def phase1_kernels(seed: int):
         ("edit", 64, 2048, 2048, -1024, edit, score_only, True),
         ("edit", 64, 8192, 4096, -2048, edit, score_only, True),
         ("affine", 1024, 2048, 2048, -1024, asm5, score_only, True),
+        # the complex-SV haplotype pairing's edit distances (clip_to = 10:
+        # W = 128) on the golden run: 21 pairs padded to 64, in the length
+        # buckets 512 and 1024
+        ("pairing edit", 64, 512, 128, -64, edit, score_only, False),
+        ("pairing edit", 64, 1024, 128, -64, edit, score_only, False),
     ]
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
@@ -1020,6 +1044,216 @@ def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
     return info
 
 
+# tests/test_golden_e2e.py's SIM_ARGS (copied: the smoke run imports no
+# tests): 4 x 250 kb, every SV type, a translocation, small indels, HiFi
+# reads at 30x, 9 kb
+GOLDEN_SIM = ["--length", "250000", "--chroms", "4",
+              "--n_del", "12", "--n_ins", "12", "--n_inv", "4", "--n_dup", "4",
+              "--n_clustered", "5", "--n_nested", "4", "--n_small", "10",
+              "--n_tra", "1", "--coverage", "30", "--read_len", "9000",
+              "--seed", "42"]
+GOLDEN_TRUTH = os.path.join(REPO, "tests", "data", "golden_truth.vcf")
+# tests/test_torch_run.py's recipe: 2 x 50 kb with an INV, a DUP, a
+# translocation and small indels, so every caller writes records
+RUN_SIM = ["--length", "50000", "--chroms", "2", "--n_del", "2",
+           "--n_ins", "2", "--n_inv", "1", "--n_dup", "1", "--n_small", "4",
+           "--n_tra", "1", "--min_len", "300", "--max_len", "1000",
+           "--coverage", "20", "--read_len", "7000", "--seed", "3"]
+RUN_OUT = ["volcanosv_variants.vcf", "volcanosv_large_indel.vcf",
+           "volcanosv_small_indel.vcf", "volcanosv_complex_sv.vcf",
+           "final_contigs.fa", "phased_snps.vcf"]
+# the pairing's edit distances: EDIT score-only at W = 128 (clip_to = 10)
+PAIRING_MODE, PAIRING_W = "edit+score", 128
+
+
+def _run_args(d: str, out: str, device: str) -> list[str]:
+    return ["run", "--ref", os.path.join(d, "ref.fa"),
+            "--fastq", os.path.join(d, "reads.fastq"),
+            "-o", out, "--device", device]
+
+
+def _watch_complex(shapes: list):
+    """Wrap call_complex_svs, where `run` calls it: `shapes` receives the
+    banded_dp launches made inside it.  Returns the undo."""
+    from volcanosv_tpu_torch.ops import banded_align as ba
+    from volcanosv_tpu_torch.vc import complex_sv
+    fn = complex_sv.call_complex_svs
+
+    def wrapper(*args, **kw):
+        n0 = len(ba.banded_dp.shapes)
+        try:
+            return fn(*args, **kw)
+        finally:
+            shapes.extend(ba.banded_dp.shapes[n0:])
+    complex_sv.call_complex_svs = wrapper
+    return lambda: setattr(complex_sv, "call_complex_svs", fn)
+
+
+def _golden_gates(sim_dir: str, out: str, device: str = "cuda") -> dict:
+    """tests/test_golden_e2e.py's gates on `run`'s outputs, through the
+    port's eval: SVs (F1, recall >= 0.99, GT >= 0.98), small indels,
+    SNPs and switch error, the cross-chromosome BND pair."""
+    from volcanosv_tpu_torch.eval import (EvalParams, evaluate_files,
+                                          evaluate_snp_files)
+    from volcanosv_tpu_torch.io.vcf import read_vcf
+    dev = device
+    truth = os.path.join(sim_dir, "truth.vcf")
+    sv = evaluate_files(truth, os.path.join(out, "volcanosv_variants.vcf"),
+                        device=dev)
+    small = evaluate_files(truth,
+                           os.path.join(out, "volcanosv_small_indel.vcf"),
+                           EvalParams(minsize=2, maxsize=29, pctsim=0.0),
+                           device=dev)
+    snp = evaluate_snp_files(os.path.join(sim_dir, "truth_snps.vcf"),
+                             os.path.join(out, "phased_snps.vcf"))
+    _h, t_recs = read_vcf(truth)
+    _h, calls = read_vcf(os.path.join(out, "volcanosv_variants.vcf"))
+    t_bnds = [r for r in t_recs if r.svtype == "BND"]
+    c_bnds = [r for r in calls if r.svtype == "BND"]
+    by_id = {r.id: r for r in c_bnds}
+    matched, bad = 0, []
+    for t in t_bnds:
+        for c in c_bnds:
+            if (c.chrom == t.chrom and abs(c.pos - t.pos) <= 200
+                    and str(c.info.get("CHR2")) == str(t.info.get("CHR2"))):
+                mate = by_id.get(c.info.get("MATEID"))
+                if c.gt != "1|1" or mate is None \
+                        or mate.info.get("MATEID") != c.id:
+                    bad.append(c.id)        # a 1|1 reciprocal pair, or fail
+                matched += 1
+                break
+    gates = dict(sv=sv.summary(), small_indel=small.summary(), snp=snp,
+                 bnd=dict(truth=len(t_bnds), called=len(c_bnds),
+                          matched=matched, bad=bad))
+    failed = [name for name, ok in (
+        ("sv f1", sv.f1 >= 0.99), ("sv recall", sv.recall >= 0.99),
+        ("sv gt", sv.gt_concordance >= 0.98),
+        ("small recall", small.recall >= 0.93),
+        ("small precision", small.precision >= 0.95),
+        ("small gt", small.gt_concordance >= 0.90),
+        ("snp recall", snp["snp_recall"] >= 0.95),
+        ("snp precision", snp["snp_precision"] >= 0.95),
+        ("snp zygosity", snp["zygosity_concordance"] >= 0.95),
+        ("switch error", snp["switch_error_rate"] <= 0.02),
+        ("bnd", bool(t_bnds) and bool(c_bnds) and not bad
+         and matched >= len(t_bnds) // 2))
+        if not ok]
+    if failed:
+        raise AssertionError(f"phase 5: golden gates failed {failed}: "
+                             f"{json.dumps(gates)}")
+    return gates
+
+
+def phase5_run_golden(profile: bool) -> dict:
+    """`sim` with the golden recipe (its truth must be the pinned
+    tests/data/golden_truth.vcf), `run --device cuda`, the golden gates;
+    stage times, the DP launches by shape and those of the complex-SV
+    stage, which must include the pairing's W = 128."""
+    import contextlib
+
+    import torch
+
+    from volcanosv_tpu_torch import cli
+    from volcanosv_tpu_torch.ops import banded_align as ba
+    from volcanosv_tpu_torch.utils.logging import STAGE_TIMES, stage_report
+    d = os.path.join(WORK, "golden")
+    sim_dir, out = os.path.join(d, "sim"), os.path.join(d, "out")
+    t0 = time.perf_counter()
+    if cli.main(["sim", "-o", sim_dir] + GOLDEN_SIM) != 0:
+        raise AssertionError("phase 5: sim failed")
+    sim_s = time.perf_counter() - t0
+    with open(os.path.join(sim_dir, "truth.vcf"), "rb") as a, \
+            open(GOLDEN_TRUTH, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("phase 5: the sim's truth.vcf differs from "
+                                 "tests/data/golden_truth.vcf")
+    complex_shapes = []
+    undo = _watch_complex(complex_shapes)
+    STAGE_TIMES.clear()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if profile \
+        else contextlib.nullcontext()
+    ba.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with prof:
+            rc = cli.main(_run_args(sim_dir, out, "cuda"))
+            torch.cuda.synchronize()
+    finally:
+        undo()
+    run_s = time.perf_counter() - t0
+    launches = {"banded_dp": ba.banded_dp.launches,
+                "tb_walk": ba.tb_walk.launches}
+    dp_shapes = _dp_shapes(ba.banded_dp.shapes)
+    from collections import Counter
+    walk_shapes = [dict(branch=br, B=B, M=M, W=W, count=n)
+                   for (br, B, M, W), n in Counter(ba.tb_walk.shapes).items()]
+    cx_shapes = _dp_shapes(complex_shapes)
+    stages = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
+    if rc != 0:
+        raise AssertionError(f"phase 5: run exited {rc}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"phase 5: {name} never launched in run")
+    pairing = [r for r in cx_shapes
+               if r["mode"] == PAIRING_MODE and r["W"] == PAIRING_W]
+    if not pairing:
+        raise AssertionError(f"phase 5: no banded_dp launch at W = "
+                             f"{PAIRING_W} inside complex-sv: {cx_shapes}")
+    _log(f"phase 5: run {run_s:.1f} s, launches {launches}\n"
+         f"phase 5: banded_dp launches by shape {json.dumps(dp_shapes)}\n"
+         f"phase 5: tb_walk launches by shape {json.dumps(walk_shapes)}\n"
+         f"phase 5: banded_dp launches inside complex-sv "
+         f"{json.dumps(cx_shapes)}\n" + stage_report())
+    profile_info = _profile_summary(prof, run_s) if profile else None
+    if profile:
+        _log(f"phase 5: profile {json.dumps(profile_info)}")
+    gates = _golden_gates(sim_dir, out)
+    _log(f"phase 5: golden gates passed {json.dumps(gates)}")
+    return dict(run_s=run_s, sim_s=sim_s, stages=stages, launches=launches,
+                banded_dp_shapes=dp_shapes, tb_walk_shapes=walk_shapes,
+                complex_sv_shapes=cx_shapes,
+                pairing_launches=sum(r["count"] for r in pairing),
+                gates=gates, profile=profile_info)
+
+
+def phase5b_run_cuda_vs_cpu() -> dict:
+    """`run` with --device cuda and --device cpu on the 2 x 50 kb recipe:
+    the six outputs and phased.bam byte-identical.  Nothing is caught."""
+    from volcanosv_tpu_torch import cli
+    from volcanosv_tpu_torch.utils.logging import STAGE_TIMES
+    d = os.path.join(WORK, "run_cuda_vs_cpu")
+    if cli.main(["sim", "-o", os.path.join(d, "sim")] + RUN_SIM) != 0:
+        raise AssertionError("phase 5b: sim failed")
+    outs, secs, stages = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(d, f"out_{device}")
+        STAGE_TIMES.clear()
+        t0 = time.perf_counter()
+        if cli.main(_run_args(os.path.join(d, "sim"), out, device)) != 0:
+            raise AssertionError(f"phase 5b: run --device {device} failed")
+        secs[device] = time.perf_counter() - t0
+        stages[device] = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
+        outs[device] = {}
+        for name in RUN_OUT + ["phased.bam"]:
+            with open(os.path.join(out, name), "rb") as fh:
+                outs[device][name] = fh.read()
+    for name, want in outs["cpu"].items():
+        if outs["cuda"][name] != want or not want:
+            raise AssertionError(f"phase 5b: {name} differs between cuda "
+                                 "and cpu")
+    merged = outs["cpu"]["volcanosv_variants.vcf"]
+    for tag in (b"<INV>", b"<DUP>", b"SVTYPE=BND", b"-INS-", b"-DEL-"):
+        if tag not in merged:
+            raise AssertionError(f"phase 5b: no {tag!r} record in run")
+    info = dict(run_s=secs, stages=stages,
+                bytes={n: len(b) for n, b in outs["cpu"].items()})
+    _log(f"phase 5b: run outputs byte-identical on cuda and cpu "
+         f"{json.dumps(info)}")
+    return info
+
+
 def _row_at_top_shape(rows: list[dict], shapes: list[dict]) -> dict:
     """The phase-1 row at the launch a path made most often: the same
     (mode, design, B, M, W) for banded_dp, (design, B, M, W) for tb_walk."""
@@ -1036,7 +1270,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="trace phases 2 and 4 with torch.profiler and "
+                    help="trace phases 2, 4 and 5 with torch.profiler and "
                          "print the device time by kernel")
     args = ap.parse_args()
     import torch
@@ -1057,8 +1291,7 @@ def main() -> int:
     with ThreadPoolExecutor(1) as pool:
         host_lib = pool.submit(native.get_lib)
         cuda_build.load_all()
-        if host_lib.result() is None:
-            raise RuntimeError("g++ failed to build the native host helpers")
+        host_lib.result()             # raises when g++ fails
     _log(f"kernels and host helpers built in "
          f"{time.perf_counter() - t_start:.1f} s "
          f"({cuda_build.build_dir()}) on {smi}")
@@ -1070,6 +1303,8 @@ def main() -> int:
     phase3_cuda_vs_cpu(args.seed)
     info["asm"], kept = phase4_asm(args.seed, args.profile)
     info["asm_cuda_vs_cpu"] = phase4b_asm_cuda_vs_cpu(args.seed, kept)
+    info["run"] = phase5_run_golden(args.profile)
+    info["run_cuda_vs_cpu"] = phase5b_run_cuda_vs_cpu()
     _log(f"total {time.perf_counter() - t_start:.1f} s")
 
     warp_rows = [r for r in dp_rows if r["branch"] == "warp"]
@@ -1081,6 +1316,9 @@ def main() -> int:
     asm_dp = _row_at_top_shape(dp_rows, info["asm"]["banded_dp_shapes"])
     asm_walk = _row_at_top_shape(walk_rows, info["asm"]["tb_walk_shapes"])
     asm_launches = info["asm"]["launches"]
+    pair_dp = _row_at_top_shape(
+        dp_rows, [r for r in info["run"]["complex_sv_shapes"]
+                  if r["mode"] == PAIRING_MODE and r["W"] == PAIRING_W])
     dp_src = dict(route="cuda", source="volcanosv_tpu_torch/csrc/banded_dp.cu",
                   replaces="volcanosv_tpu/ops/pallas/banded_dp.py:46")
     walk_src = dict(route="cuda", source="volcanosv_tpu_torch/csrc/tb_walk.cu",
@@ -1122,6 +1360,13 @@ def main() -> int:
              plain_ms=asm_walk["plain_ms"], bound_ms=asm_walk["bound_ms"],
              bound_by=asm_walk["bound_by"], library_ms=None,
              shapes=[asm_walk]),
+        dict(name="banded_dp_pairing", **dp_src,
+             design=pair_dp["branch"], path="run: complex-SV pairing",
+             launches=info["run"]["pairing_launches"],
+             max_abs_err=pair_dp["max_abs_err"], ms=pair_dp["ms"],
+             plain_ms=pair_dp["plain_ms"], bound_ms=pair_dp["bound_ms"],
+             bound_by=pair_dp["bound_by"], library_ms=None,
+             shapes=[pair_dp]),
     ]
     print(json.dumps(info))
     print(smi)

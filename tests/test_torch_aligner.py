@@ -8,11 +8,19 @@ import dataclasses
 import numpy as np
 import pytest
 
+from torch_inputs import ensure_reference_native_lib
 from volcanosv_tpu import sim
 from volcanosv_tpu.aligner import Aligner as RefAligner
 from volcanosv_tpu.config import AlignConfig as RefAlignConfig
 from volcanosv_tpu_torch.aligner import Aligner
 from volcanosv_tpu_torch.config import from_reference_dict
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native_lib():
+    """The JAX package's native library loaded whole before its first use
+    (torch_inputs.ensure_reference_native_lib)."""
+    ensure_reference_native_lib()
 
 
 @pytest.fixture(scope="module")

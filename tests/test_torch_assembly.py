@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_inputs import ensure_reference_native_lib
 from volcanosv_tpu import sim
 from volcanosv_tpu.aligner import Aligner
 from volcanosv_tpu.assembly import run_assembly as ref_run_assembly
@@ -27,6 +28,13 @@ from volcanosv_tpu_torch.assembly import run_assembly
 from volcanosv_tpu_torch.cli import main as port_main
 from volcanosv_tpu_torch.config import AssemblyConfig, PipelineConfig
 from volcanosv_tpu_torch.pipeline import assemble_chromosome
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native_lib():
+    """The JAX package's native library loaded whole before its first use
+    (torch_inputs.ensure_reference_native_lib)."""
+    ensure_reference_native_lib()
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -434,3 +434,83 @@ def test_kmer_ops_card_equal_cpu(cuda, k):
     for g, w in zip(out[str(cuda)], out["cpu"]):
         assert g.dtype == w.dtype
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_complex_svs_card_equals_cpu(cuda):
+    """call_complex_svs on tests/test_complex_sv.py's inv_case (80 kb, 4 INV
+    and 3 DUP, HiFi reads at 16x; simulated by the port's `sim`), on the
+    card and on the CPU from the same alignments: equal records and
+    consumed INS ids, and the pairing's edit distances launched at
+    W = 128."""
+    from volcanosv_tpu_torch import sim
+    from volcanosv_tpu_torch.aligner import Aligner
+    from volcanosv_tpu_torch.config import AlignConfig, PipelineConfig
+    from volcanosv_tpu_torch.vc.complex_sv import call_complex_svs
+    from volcanosv_tpu_torch.vc.large_indel import call_chromosome
+    rng = np.random.default_rng(11)
+    ref = sim.random_genome(rng, 80_000)
+    hap1, hap2, _truth = sim.implant_svs(
+        rng, ref, n_del=0, n_ins=0, n_inv=4, n_dup=3,
+        min_len=300, max_len=1_200, min_gap=4_000)
+    contigs = sim.contigs_from_haplotypes(hap1, hap2, block_size=40_000)
+    reads = {n: s for n, s, *_ in sim.simulate_reads(
+        rng, {1: hap1, 2: hap2}, coverage=16.0, read_len=9_000,
+        read_len_sd=1_000, sub_rate=0.001, indel_rate=0.0003)}
+
+    def by_chrom(seqs, preset):
+        al = Aligner(ref, AlignConfig.preset(preset), device=cuda)
+        return {"chr1": al.to_bam_records(al.align(list(seqs.items())),
+                                          seqs)}
+    ctg, rds = by_chrom(contigs, "asm10"), by_chrom(reads, "map-hifi")
+    cfg = PipelineConfig.for_dtype("Hifi")
+    ins = [r for r in call_chromosome("chr1", ctg["chr1"], ref["chr1"],
+                                      contigs, cfg, device=cuda)
+           if r.svtype == "INS"]
+    out = {}
+    for dev in (cuda, "cpu"):
+        consumed = set()
+        ba.reset_launch_counts()
+        recs = call_complex_svs(ctg, ref, cfg, ins_records=ins,
+                                reads_by_chrom=rds, consumed_ins=consumed,
+                                device=dev)
+        out[str(dev)] = ([(r.chrom, r.pos, r.id, r.ref, r.alt, r.gt,
+                           list(r.info.items())) for r in recs], consumed)
+        if dev == cuda:
+            shapes = list(ba.banded_dp.shapes)
+    assert out[str(cuda)] == out["cpu"]
+    assert {"INV", "DUP"} <= {dict(r[6]).get("SVTYPE")
+                              for r in out["cpu"][0]}
+    assert any(m == ba.dp_mode(ba.Scores.edit(), with_traceback=False)
+               and W == 128 for m, _br, _B, _M, W in shapes), shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [512, 1024])
+def test_pairing_edit_distances_match_plain(cuda, M):
+    """The complex-SV pairing's batches on the golden run: EDIT score-only
+    at W = 128 (clip_to = 10), 21 pairs padded to B = 64, in the length
+    buckets 512 and 1024; scores equal to banded_dp_plain's for every
+    design.  Then edit_distance_pairs(clip_to=10) on 21 haplotype-like
+    pairs (0-40 edits apart) in that bucket: card = CPU."""
+    from volcanosv_tpu_torch.vc.redundancy import edit_distance_pairs
+    W, d_lo, B = 128, -64, 64
+    rng = np.random.default_rng(M)
+    q, t, qlen, tlen = _pairs(rng, B, M, W, d_lo)
+    args = [torch.from_numpy(x).to(cuda) for x in (q, t, qlen, tlen)]
+    _check_against_plain(cuda, args, M, W, d_lo, *MODES["edit"])
+    bases = np.array(list("ACGT"))
+    pairs = []
+    for i in range(21):
+        a = rng.choice(bases, int(rng.integers(M // 2 + 1, M - 40)))
+        b = a.copy()
+        for _ in range(2 * i):
+            k = int(rng.integers(0, len(b)))
+            b = np.delete(b, k) if i % 2 else np.insert(b, k, "A")
+        pairs.append(("".join(a), "".join(b)))
+    ba.reset_launch_counts()
+    got = edit_distance_pairs(pairs, clip_to=10, device=cuda)
+    assert ba.banded_dp.shapes == [("edit+score", "warp", B, M, W)]
+    want = edit_distance_pairs(pairs, clip_to=10, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert (got <= 10).any() and (got > 10).any()

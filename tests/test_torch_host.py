@@ -11,6 +11,7 @@ import sys
 import numpy as np
 import pytest
 
+from torch_inputs import ensure_reference_native_lib
 import volcanosv_tpu.native as ref_native
 import volcanosv_tpu_torch.native as port_native
 from volcanosv_tpu import config as ref_config
@@ -165,8 +166,7 @@ def test_native_helpers_match_reference(tmp_path):
     from volcanosv_tpu_torch.ops.chain import seed_chain_batch
     from volcanosv_tpu_torch.ops.minimizer import MinimizerIndex, sketch_np
     from volcanosv_tpu_torch.ops.pack import encode_seq
-    lib, rlib = port_native.get_lib(), ref_native.get_lib()
-    assert lib is not None and rlib is not None
+    lib, rlib = port_native.get_lib(), ensure_reference_native_lib()
     assert os.path.dirname(port_native._lib_path()).startswith(
         os.path.join(REPO, "build"))
     rng = np.random.default_rng(4)
@@ -207,6 +207,37 @@ def test_native_helpers_match_reference(tmp_path):
     np.testing.assert_array_equal(sa.flag, sb.flag)
 
 
+@pytest.fixture
+def fresh_native(monkeypatch, tmp_path):
+    """The port's native module with no library loaded and an empty build
+    root: the next get_lib() builds."""
+    monkeypatch.setattr(port_native, "_lib", None)
+    monkeypatch.setattr(port_native, "BUILD_ROOT", str(tmp_path / "build"))
+    return tmp_path
+
+
+def test_native_build_without_compiler_raises(fresh_native, monkeypatch):
+    """A missing compiler raises, at every call: no numpy fallback."""
+    monkeypatch.setattr(port_native, "CXX",
+                        str(fresh_native / "no-such-g++"))
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="no-such-g\\+\\+.*not found"):
+            port_native.get_lib()
+    assert port_native._lib is None
+    assert not os.path.exists(port_native._lib_path())
+
+
+def test_native_build_failure_quotes_compiler(fresh_native, monkeypatch):
+    """A compiler that fails: its exit code and stderr are in the error."""
+    cxx = fresh_native / "failing-cxx"
+    cxx.write_text("#!/bin/sh\necho 'soup.cpp:1: error: boom' >&2\nexit 3\n")
+    cxx.chmod(0o755)
+    monkeypatch.setattr(port_native, "CXX", str(cxx))
+    with pytest.raises(RuntimeError, match="(?s)exited 3.*error: boom"):
+        port_native.get_lib()
+    assert not os.path.exists(port_native._lib_path())
+
+
 def test_port_modules_import_no_jax():
     """Importing every module of the port leaves jax and volcanosv_tpu out
     of sys.modules."""
@@ -240,7 +271,7 @@ def _entry_point_calls(tmp_path):
     from volcanosv_tpu_torch.partition import partition
     from volcanosv_tpu_torch.phasing import phase, pileup, realign
     from volcanosv_tpu_torch.pipeline import asm
-    from volcanosv_tpu_torch.vc import large_indel, redundancy
+    from volcanosv_tpu_torch.vc import complex_sv, large_indel, redundancy
     pcfg = config.PipelineConfig.for_dtype("Hifi")
     pairs = [("ACGTACGT", "ACGTTCGT")]
     one = np.ones(1, np.int64)
@@ -283,6 +314,15 @@ def _entry_point_calls(tmp_path):
             "chr1", [], "ACGT" * 50, {}, pcfg),
         "call_chromosome": lambda: large_indel.call_chromosome(
             "chr1", [], "ACGT" * 50, {}, pcfg),
+        "pair_candidates_by_sequence":
+            lambda: complex_sv.pair_candidates_by_sequence(
+                [], {}, pcfg.complex_sv),
+        "recover_dups_from_ins": lambda: complex_sv.recover_dups_from_ins(
+            [], {}, pcfg.complex_sv),
+        "call_inversions": lambda: complex_sv.call_inversions(
+            [], pcfg.complex_sv, None, {}),
+        "call_complex_svs": lambda: complex_sv.call_complex_svs(
+            {}, {}, pcfg),
         "evaluate": lambda: port_eval.evaluate([], []),
         "evaluate_files": lambda: port_eval.evaluate_files(
             str(tmp_path / "absent_base.vcf"),
@@ -298,7 +338,8 @@ def _entry_point_calls(tmp_path):
     "pileup_chromosome", "phase_chromosome", "pairhmm_alleles",
     "build_hap_tables", "partition_reads", "consensus_poa_many",
     "polish_many", "polish_grouped", "assemble_block", "run_assembly",
-    "assemble_chromosome"])
+    "assemble_chromosome", "pair_candidates_by_sequence",
+    "recover_dups_from_ins", "call_inversions", "call_complex_svs"])
 def test_entry_points_default_to_cuda(tmp_path, entry):
     """Every public entry point runs on the card unless asked for the CPU:
     without `device` on a host with no CUDA it raises before any work (the
@@ -324,4 +365,11 @@ def test_device_cuda_raises_without_cuda(tmp_path):
               "--contig", str(tmp_path / "c.fa"), "-o", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["asm", "--ref", str(tmp_path / "r.fa"),
+              "--fastq", str(tmp_path / "r.fq"), "-o", str(tmp_path)])
+    for cmd in ("vc-small-indel", "vc-complex-sv"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main([cmd, "--ref", str(tmp_path / "r.fa"),
+                  "--contig", str(tmp_path / "c.fa"), "-o", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["run", "--ref", str(tmp_path / "r.fa"),
               "--fastq", str(tmp_path / "r.fq"), "-o", str(tmp_path)])

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_inputs import ensure_reference_native_lib
 from volcanosv_tpu import sim
 from volcanosv_tpu.cli import main as ref_main
 from volcanosv_tpu.io.fasta import write_fasta
@@ -19,6 +20,13 @@ from volcanosv_tpu.io.vcf import VcfRecord, make_header, read_vcf, write_vcf
 from volcanosv_tpu.vc import redundancy as ref_red
 from volcanosv_tpu_torch.cli import main as port_main
 from volcanosv_tpu_torch.vc import redundancy as port_red
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native_lib():
+    """The JAX package's native library loaded whole before its first use
+    (torch_inputs.ensure_reference_native_lib)."""
+    ensure_reference_native_lib()
 
 VCF = "volcanosv_large_indel.vcf"
 

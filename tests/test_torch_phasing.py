@@ -30,7 +30,14 @@ from volcanosv_tpu_torch.io.vcf import make_header, write_vcf
 from volcanosv_tpu_torch.phasing import phase, pileup, realign, snp_vcf
 from volcanosv_tpu_torch.utils import threefry
 from tests.test_realign import _mk_ref, _reads
-from torch_inputs import viterbi_pairs
+from torch_inputs import ensure_reference_native_lib, viterbi_pairs
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_native_lib():
+    """The JAX package's native library loaded whole before its first use
+    (torch_inputs.ensure_reference_native_lib)."""
+    ensure_reference_native_lib()
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -23,7 +23,7 @@ minimap2's long-gap patching.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -32,8 +32,8 @@ from .device import DEFAULT_DEVICE, resolve_device
 from .ops.banded_align import (Scores, banded_align_cigars,
                                banded_align_cigars_dispatch, banded_row0_auto,
                                pad_batch_pow2)
-from .ops.chain import Chain, chain_anchors
-from .ops.minimizer import MinimizerIndex, sketch_np
+from .ops.chain import Chain
+from .ops.minimizer import MinimizerIndex
 from .ops.pack import decode_codes, encode_seq, revcomp_codes
 from .io.bam import BamRecord, FREVERSE, FSUPPLEMENTARY
 from .utils.logging import get_logger, stage_timer
@@ -382,31 +382,16 @@ class Aligner:
                            max_chains: int, chunk: int = 512):
         """Yields (qname, qc_fwd, chains) per query.
 
-        Native path: the fused seed_chain_batch kernel runs per chunk on a
+        The fused native seed_chain_batch kernel runs per chunk on a
         prefetch thread (ctypes releases the GIL), so chunk i+1's
-        sketch/lookup/chain overlaps the python planning of chunk i.
-        Fallback: the per-query numpy path (identical outputs)."""
-        from .native import get_lib
+        sketch/lookup/chain overlaps the python planning of chunk i."""
+        from concurrent.futures import ThreadPoolExecutor
+
         from .ops.chain import seed_chain_batch
         cfg = self.cfg
-        lib = get_lib()
-        if lib is None or not hasattr(lib, "seed_chain_batch"):
-            for qname, qseq in queries:
-                qc_fwd = encode_seq(qseq)
-                qp, qh, qs = sketch_np(qc_fwd, cfg.k, cfg.w)
-                chains = []
-                if len(qp):
-                    t_pos, q_pos, strand = self.index.anchors(qp, qh, qs)
-                    chains = chain_anchors(t_pos, q_pos, strand, len(qc_fwd),
-                                           cfg, max_chains=max_chains)
-                yield qname, qc_fwd, self._select(chains, len(qc_fwd))
-            return
-        from concurrent.futures import ThreadPoolExecutor
 
         def job(part):
             # primary/supplementary selection runs inside the native call
-            # (select_chains in seedchain.cpp — same cover logic as the
-            # python _select/_anchor_cover pair)
             qcs = [encode_seq(s) for _, s in part]
             return qcs, seed_chain_batch(qcs, self.index, cfg, max_chains,
                                          select=(self._SEL_HOLE,
@@ -463,44 +448,12 @@ class Aligner:
                 alns += self._inv_rescue(alns, dict(queries))
         return alns
 
-    def _anchor_cover(self, ch: Chain, qlen: int,
-                      hole: int = 100) -> list[tuple[int, int]]:
-        """Forward-orientation query intervals actually covered by anchors
-        (gaps > `hole` between anchors stay uncovered, so an opposite-strand
-        chain filling e.g. an inversion interior is not shadowed)."""
-        k = self.cfg.k
-        a = ch.anchors_q
-        if len(a) > 1 and not bool(np.all(a[1:] >= a[:-1])):
-            a = np.sort(a)
-        ends = a + k                      # sorted ⇒ ends sorted too
-        brk = np.nonzero(a[1:] > ends[:-1] + hole)[0] + 1
-        starts = np.concatenate([[0], brk])
-        stops = np.concatenate([brk, [len(a)]])
-        iv = [(int(a[s]), int(ends[e - 1])) for s, e in zip(starts, stops)]
-        if ch.strand == -1:
-            iv = [(qlen - e, qlen - s) for s, e in iv]
-        return iv
-
+    # primary + non-redundant supplementary selection (seedchain.cpp
+    # select_chains): a chain is dropped when more than _SEL_FRAC of its
+    # query span lies in intervals covered by the anchors of the chains
+    # kept before it (anchor gaps > _SEL_HOLE stay uncovered)
     _SEL_HOLE = 100
     _SEL_FRAC = 0.5
-
-    def _select(self, chains: list[Chain], qlen: int) -> list[Chain]:
-        """Primary + non-redundant supplementary selection by query overlap
-        against anchor-covered intervals (not whole chain spans).  The
-        native path applies the same logic in seedchain.cpp select_chains;
-        this python version serves the fallback path (and is the oracle
-        the native selection is pinned against in tests)."""
-        out: list[Chain] = []
-        cov: list[tuple[int, int]] = []
-        for ch in chains:
-            ov = 0
-            for s, e in cov:
-                ov += max(0, min(e, ch.q_end) - max(s, ch.q_start))
-            if ov > 0.5 * (ch.q_end - ch.q_start):
-                continue
-            out.append(ch)
-            cov.extend(self._anchor_cover(ch, qlen))
-        return out
 
     def _assemble(self, plans) -> list[Alignment]:
         by_query: dict[str, list[Alignment]] = {}
@@ -551,99 +504,34 @@ class Aligner:
         coords in the alignment's orientation (clips included).  A small
         inversion chained straight through aligns as ~0.6+ events/bp
         against ≲0.01 (HiFi/contig) background, so a density trigger with a
-        real-indel barrier finds exactly the inverted windows.  The
-        mismatch scan is one vectorized gather over the M columns (this
-        runs on EVERY alignment — the per-op python loop it replaces cost
-        ~20% of warm read-alignment wall)."""
+        real-indel barrier finds exactly the inverted windows.  The scan
+        runs in the native helpers (native/soup.cpp), at most 64 runs an
+        alignment, as in the reference (this runs on EVERY alignment)."""
         cig = np.asarray(a.cigar, np.int64)
         ops, lens = cig[:, 0], cig[:, 1]
-
-        def _offsets():
-            cr = ((ops == M) | (ops == D)) * lens
-            cq = ((ops == M) | (ops == I) | (ops == S)) * lens
-            r0s = a.pos + np.concatenate([[0], np.cumsum(cr)[:-1]])
-            q0s = np.concatenate([[0], np.cumsum(cq)[:-1]])
-            return r0s, q0s
-
         from .native import get_lib
-        lib = get_lib()
-        if lib is not None and hasattr(lib, "soup_runs"):
-            max_out = 64
-            r0_arr = np.empty(max_out, np.int64)
-            r1_arr = np.empty(max_out, np.int64)
-            n = lib.soup_runs(np.ascontiguousarray(cig.reshape(-1)),
-                              len(ops), a.pos,
-                              np.ascontiguousarray(qc, np.int8), len(qc),
-                              np.ascontiguousarray(tc, np.int8), len(tc),
-                              self._RESCUE_GAP, self._RESCUE_MIN_SPAN,
-                              self._RESCUE_MIN_EVENTS,
-                              float(self.cfg.inv_rescue_density),
-                              self._RESCUE_SMALL_INDEL,
-                              self._RESCUE_MAX_SPAN, self._RESCUE_MARGIN,
-                              r0_arr, r1_arr, max_out)
-            if n == 0:
-                return []
-            r0s, q0s = _offsets()
-            runs = []
-            for i in range(int(n)):
-                r0, r1 = int(r0_arr[i]), int(r1_arr[i])
-                q0 = _ref_to_query(ops, lens, r0s, q0s, r0)
-                q1 = _ref_to_query(ops, lens, r0s, q0s, r1)
-                if q1 - q0 >= self._RESCUE_MIN_SPAN:
-                    runs.append((r0, r1, q0, q1))
-            return runs
-        r0s, q0s = _offsets()
-        # per-M-run slice compares (no index-array materialization: two
-        # int8 slices per run instead of building ~qlen int64 gathers —
-        # this runs on EVERY alignment)
-        m_sel = (ops == M) & (lens > 0)
-        events_list: list[np.ndarray] = []
-        for i in np.nonzero(m_sel)[0]:
-            r0, q0, ln = int(r0s[i]), int(q0s[i]), int(lens[i])
-            mm = np.nonzero(qc[q0:q0 + ln] != tc[r0:r0 + ln])[0]
-            if len(mm):
-                events_list.append(mm + r0)
-        ind_sel = ((ops == I) | (ops == D)) & (lens > 0) \
-            & (lens <= self._RESCUE_SMALL_INDEL)
-        if ind_sel.any():
-            events_list.append(r0s[ind_sel])
-        barriers = r0s[((ops == I) | (ops == D))
-                       & (lens > self._RESCUE_SMALL_INDEL)].tolist()
-        if not events_list:
+        max_out = 64                   # the reference's cap on the runs
+        r0_arr = np.empty(max_out, np.int64)
+        r1_arr = np.empty(max_out, np.int64)
+        n = get_lib().soup_runs(np.ascontiguousarray(cig.reshape(-1)),
+                                len(ops), a.pos,
+                                np.ascontiguousarray(qc, np.int8), len(qc),
+                                np.ascontiguousarray(tc, np.int8), len(tc),
+                                self._RESCUE_GAP, self._RESCUE_MIN_SPAN,
+                                self._RESCUE_MIN_EVENTS,
+                                float(self.cfg.inv_rescue_density),
+                                self._RESCUE_SMALL_INDEL,
+                                self._RESCUE_MAX_SPAN, self._RESCUE_MARGIN,
+                                r0_arr, r1_arr, max_out)
+        if n == 0:
             return []
-        ev = np.sort(np.concatenate(events_list))
-        # cheap reject: without MIN_EVENTS events inside some MIN_SPAN-ish
-        # window nothing can trigger (true for almost every alignment)
-        k = self._RESCUE_MIN_EVENTS
-        if len(ev) < k or not (
-                (ev[k - 1:] - ev[:len(ev) - k + 1])
-                <= self._RESCUE_GAP * (k - 1)).any():
-            return []
-        # split runs at gaps and at real-indel barriers
-        cut = np.diff(ev) > self._RESCUE_GAP
-        if barriers:
-            bar = np.asarray(barriers, np.int64)
-            between = (np.searchsorted(bar, ev[:-1], "right")
-                       != np.searchsorted(bar, ev[1:], "right"))
-            cut |= between
-        starts = np.concatenate([[0], np.nonzero(cut)[0] + 1])
-        stops = np.concatenate([np.nonzero(cut)[0] + 1, [len(ev)]])
+        cr = ((ops == M) | (ops == D)) * lens
+        cq = ((ops == M) | (ops == I) | (ops == S)) * lens
+        r0s = a.pos + np.concatenate([[0], np.cumsum(cr)[:-1]])
+        q0s = np.concatenate([[0], np.cumsum(cq)[:-1]])
         runs = []
-        t_end = a.pos + int((((ops == M) | (ops == D)) * lens).sum())
-        for s, e in zip(starts, stops):
-            lo, hi = int(ev[s]), int(ev[e - 1]) + 1
-            n, span = e - s, hi - lo
-            if (span < self._RESCUE_MIN_SPAN or n < self._RESCUE_MIN_EVENTS
-                    or span > self._RESCUE_MAX_SPAN
-                    or n / span < self.cfg.inv_rescue_density):
-                continue
-            # margin scales with span: margins are CLEAN forward sequence
-            # that mismatches when the window is reverse-complemented, so
-            # a fixed 20bp margin sinks a 60-90bp inversion below the
-            # acceptance floor (margin cost ≈ 2.5/bp vs 0.7·span budget)
-            m = min(self._RESCUE_MARGIN, max(3, span // 12))
-            r0 = max(lo - m, a.pos)
-            r1 = min(hi + m, t_end)
+        for i in range(int(n)):
+            r0, r1 = int(r0_arr[i]), int(r1_arr[i])
             q0 = _ref_to_query(ops, lens, r0s, q0s, r0)
             q1 = _ref_to_query(ops, lens, r0s, q0s, r1)
             if q1 - q0 >= self._RESCUE_MIN_SPAN:

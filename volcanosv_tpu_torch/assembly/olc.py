@@ -29,9 +29,7 @@ import numpy as np
 
 from ..config import AlignConfig, AssemblyConfig
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..ops.chain import chain_anchors
-from ..ops.minimizer import MinimizerIndex, sketch_np
-from ..ops.pack import decode_codes, encode_seq, revcomp_codes, revcomp_seq
+from ..ops.pack import decode_codes, encode_seq, revcomp_seq
 from ..utils.logging import get_logger
 
 log = get_logger("assembly")
@@ -59,7 +57,7 @@ class AssemblyResult:
 
 def _emit_overlap(overlaps, qi, ti, la, lb, strand, score,
                   q_start, q_end, t_start, t_end, cfg):
-    """Dovetail check + append (shared by native and fallback paths)."""
+    """Dovetail check + append."""
     if strand == 1:
         b_start, b_end = t_start, t_end
     else:
@@ -78,8 +76,7 @@ def _find_overlaps(seqs: list[str], cfg: AssemblyConfig,
                    acfg: AlignConfig,
                    group_of: np.ndarray | None = None) -> list[_Overlap]:
     """All-vs-all dovetail overlaps via the shared minimizer+chain core:
-    one native ava_overlaps call, or per-read python chaining where the
-    native lib did not build.
+    one native ava_overlaps call.
 
     group_of: optional per-read group id — overlaps are only sought within
     a group.  Groups are processed as independent sub-pools with their own
@@ -102,51 +99,21 @@ def _find_overlaps(seqs: list[str], cfg: AssemblyConfig,
                                     ov.b_end, ov.strand, ov.score))
         out.sort(key=lambda o: (o.a, o.b))
         return out
-    from ..native import get_lib
-    lib = get_lib()
+    from ..native import ava_overlaps_np, get_lib
     codes = [encode_seq(s) for s in seqs]
     overlaps: list[_Overlap] = []
     qlens = np.array([len(c) for c in codes], np.int64)
-
-    if lib is not None:
-        # fused native path: sketch + index + expansion + segment chaining
-        # in one call (ava.cpp)
-        from ..native import ava_overlaps_np
-        a, b, strand, score, q_s, q_e, t_s, t_e = ava_overlaps_np(
-            lib, codes, acfg)
-        for i in range(len(a)):
-            _emit_overlap(overlaps, int(a[i]), int(b[i]),
-                          int(qlens[a[i]]), int(qlens[b[i]]),
-                          int(strand[i]), float(score[i]),
-                          int(q_s[i]), int(q_e[i]), int(t_s[i]),
-                          int(t_e[i]), cfg)
-        overlaps.sort(key=lambda o: (o.a, o.b))
-        return overlaps
-
-    # no native lib: per-read python chaining
-    index = MinimizerIndex.build({str(i): c for i, c in enumerate(codes)},
-                                 acfg.k, acfg.w)
-    for qi, qc in enumerate(codes):
-        pos, h, st = sketch_np(qc, acfg.k, acfg.w)
-        if len(pos) == 0:
-            continue
-        t_pos, q_pos, strand = index.anchors(pos, h, st)
-        t_idx, t_local = index.global_to_local(t_pos)
-        keep = t_idx != qi
-        if not keep.any():
-            continue
-        qlen = len(qc)
-        for ti in np.unique(t_idx[keep]):
-            sel = keep & (t_idx == ti)
-            chains = chain_anchors(t_local[sel], q_pos[sel], strand[sel],
-                                   qlen, acfg, max_chains=1)
-            if not chains:
-                continue
-            ch = chains[0]
-            _emit_overlap(overlaps, qi, int(ti), qlen,
-                          len(codes[int(ti)]), ch.strand, ch.score,
-                          ch.q_start, ch.q_end, ch.t_start, ch.t_end,
-                          cfg)
+    # fused native path: sketch + index + expansion + segment chaining in
+    # one call (ava.cpp)
+    a, b, strand, score, q_s, q_e, t_s, t_e = ava_overlaps_np(
+        get_lib(), codes, acfg)
+    for i in range(len(a)):
+        _emit_overlap(overlaps, int(a[i]), int(b[i]),
+                      int(qlens[a[i]]), int(qlens[b[i]]),
+                      int(strand[i]), float(score[i]),
+                      int(q_s[i]), int(q_e[i]), int(t_s[i]),
+                      int(t_e[i]), cfg)
+    overlaps.sort(key=lambda o: (o.a, o.b))
     return overlaps
 
 

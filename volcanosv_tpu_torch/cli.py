@@ -1,11 +1,19 @@
 """Command-line drivers of the port — same subcommands, flags and output
 files as `volcanosv_tpu.cli`, plus `--device`:
 
-    python -m volcanosv_tpu_torch.cli asm --ref ref.fa (--fastq reads.fq | --bam reads.bam) \\
+    python -m volcanosv_tpu_torch.cli sim            -o sim/ [--seed 0] ...
+    python -m volcanosv_tpu_torch.cli asm            --ref ref.fa (--fastq reads.fq | --bam reads.bam) \\
         -o out/ [--hybrid_bed regions.bed] [--emit_fastqs] [--device cuda]
     python -m volcanosv_tpu_torch.cli vc-large-indel --ref ref.fa --contig contigs.fa \\
         [--fastq reads.fq | --bam reads.bam] -o out/ [--device cuda]
-    python -m volcanosv_tpu_torch.cli eval --base truth.vcf --comp calls.vcf [--device cuda]
+    python -m volcanosv_tpu_torch.cli vc-small-indel --ref ref.fa --contig contigs.fa \\
+        [--fastq reads.fq] -o out/ [--device cuda]
+    python -m volcanosv_tpu_torch.cli vc-complex-sv  --ref ref.fa --contig contigs.fa \\
+        [--fastq reads.fq] [--large_vcf large.vcf] -o out/ [--device cuda]
+    python -m volcanosv_tpu_torch.cli eval           --base truth.vcf --comp calls.vcf [--device cuda]
+    python -m volcanosv_tpu_torch.cli merge-vcf      --out_vcf merged.vcf a.vcf b.vcf ...
+    python -m volcanosv_tpu_torch.cli run            --ref ref.fa --fastq reads.fq -o out/ \\
+        [--resume] [--device cuda]
 
 `--device` names the torch device the device stages run on (default
 `cuda`); asking for CUDA on a host without it raises.  The drivers run in
@@ -43,14 +51,8 @@ def _load_reads(args) -> dict[str, str]:
         for name, seq, _q in read_fastq(args.fastq):
             seqs[name] = seq
     elif getattr(args, "bam", None):
-        from .io.bam import BamReader, scan_bam
-        sc = scan_bam(args.bam)            # native parallel-inflate loader
-        if sc is not None:
-            return sc.read_seqs()
-        with BamReader(args.bam) as br:
-            for rec in br:
-                if rec.seq and not rec.is_secondary and not rec.is_supplementary:
-                    seqs[rec.name] = rec.seq
+        from .io.bam import scan_bam
+        return scan_bam(args.bam).read_seqs()   # native parallel inflate
     return seqs
 
 
@@ -70,6 +72,17 @@ def _align_by_chrom(ref: dict[str, str], seqs: dict[str, str], preset: str,
 
 def _read_preset(dtype: str) -> str:
     return {"Hifi": "map-hifi", "CLR": "map-pb", "ONT": "map-ont"}[dtype]
+
+
+def _reads_by_chrom(args, ref, device, chroms):
+    """The --fastq/--bam reads aligned to ref, by chromosome of `chroms`;
+    None when neither is given."""
+    if not (getattr(args, "fastq", None) or getattr(args, "bam", None)):
+        return None
+    read_seqs = _load_reads(args)
+    with stage_timer("align-reads", log):
+        return _align_by_chrom(ref, read_seqs, _read_preset(args.dtype),
+                               device, chroms)
 
 
 def _vcf_out(out_dir: str, name: str, ref: dict[str, str], records) -> str:
@@ -113,12 +126,14 @@ def host_median(values: np.ndarray) -> float:
 
 
 def _call_large_indels(ref, by_chrom, contigs, cfg, reads_by_chrom,
-                       reads_sigs, chroms, device, include_bed=None):
+                       reads_sigs, chroms, device, include_bed=None,
+                       read_hp=None):
     """All-chromosome large-indel calling with the WGS-global coverage
     median over every chromosome's rel_cov values (the reference's
     per-run median after the all-chromosome concat,
     volcanosv-vc-large-indel.py:266-278 + filter_vcf_by_sig_cov_insdel.py
-    :38-55)."""
+    :38-55).  read_hp (chrom → read → (hap, block)) drives the
+    phase-aware GT downgrade."""
     from .vc.gt_correction import rel_coverage
     from .vc.large_indel import call_chromosome_raw, finalize_chromosome
     raw: dict[str, tuple] = {}
@@ -150,8 +165,17 @@ def _call_large_indels(ref, by_chrom, contigs, cfg, reads_by_chrom,
         recs, gt_sigs = raw[chrom]
         records += finalize_chromosome(
             recs, gt_sigs, (reads_by_chrom or {}).get(chrom), cfg,
-            cov_medians=medians or None)
+            cov_medians=medians or None,
+            read_hp=(read_hp or {}).get(chrom))
     return records
+
+
+def _load_bed(args):
+    """--bed regions by chromosome, or None."""
+    if not getattr(args, "bed", None):
+        return None
+    from .io.bed import read_bed
+    return read_bed(args.bed)
 
 
 def _restrict_chroms(args, chroms: list[str], bed) -> list[str]:
@@ -175,11 +199,13 @@ def _ckpt(args):
 # subcommands
 # ---------------------------------------------------------------------------
 
-def _run_asm(ref, read_seqs, args, device):
+def _run_asm(ref, read_seqs, args, device, reads_by_chrom=None):
     """phase → partition → assemble every chromosome on `device`.
 
     Returns (contigs, phased SNP VcfRecords — the longshot-VCF-equivalent
-    output, README.md:237-238).
+    output, README.md:237-238 —, read → (hap, block) by chromosome).
+    `reads_by_chrom`, when given, is the reads' alignment the caller made
+    (`run` aligns once for every stage); else the reads are aligned here.
     Per-chromosome results checkpoint to <out_dir>/checkpoints/ and are
     reused under --resume (the reference's log.txt skip-list contract,
     General_Assembly_Workflow.py:530-547).  Writes <out_dir>/phased.bam
@@ -191,18 +217,21 @@ def _run_asm(ref, read_seqs, args, device):
     cfg = PipelineConfig.for_dtype(args.dtype)
     ckpt = _ckpt(args)
     bed = {}
-    if args.hybrid_bed:
+    if getattr(args, "hybrid_bed", None):
         from .io.bed import read_bed
         bed = read_bed(args.hybrid_bed)
-    chroms = [args.chrom] if args.chrom else list(ref)
+    chroms = [args.chrom] if getattr(args, "chrom", None) else list(ref)
     todo = [c for c in chroms
             if not (ckpt.has(f"asm_{c}.fa") and ckpt.has(f"snps_{c}.vcf"))]
     by_chrom, phased_writer = {}, None
     if todo:
-        with stage_timer("align-reads", log):
-            by_chrom = _align_by_chrom(ref, read_seqs,
-                                       _read_preset(args.dtype), device,
-                                       chroms)
+        if reads_by_chrom is not None:
+            by_chrom = {c: reads_by_chrom.get(c, []) for c in chroms}
+        else:
+            with stage_timer("align-reads", log):
+                by_chrom = _align_by_chrom(ref, read_seqs,
+                                           _read_preset(args.dtype), device,
+                                           chroms)
         # phased BAM with HP/PS tags — longshot's '-O phased.bam' artifact
         # (volcanosv-asm.py:75-80; tag semantics prepare_info_v1.py:42-63)
         os.makedirs(args.out_dir, exist_ok=True)
@@ -225,7 +254,7 @@ def _run_asm(ref, read_seqs, args, device):
             ctgs, ph, part = assemble_chromosome(
                 recs, encode_seq(ref[chrom]), read_seqs, cfg,
                 hybrid_bed=bed.get(chrom), device=device)
-        if args.emit_fastqs:
+        if getattr(args, "emit_fastqs", False):
             # per-hap FASTQs (write_fastq_asm_general.py:97-142 parity;
             # double-assigned reads are duplicated into both haps)
             from .io.fastq import write_fastq
@@ -260,14 +289,19 @@ def _run_asm(ref, read_seqs, args, device):
         phased_writer.close()
     contigs: dict[str, str] = {}
     snp_records = []
+    read_hp_by_chrom: dict[str, dict[str, tuple[int, int]]] = {}
     for chrom in chroms:
         ctgs, snps = results[chrom]
+        # read back from the checkpoint, fresh or resumed alike
+        if os.path.exists(ckpt.path(f"read_hp_{chrom}.tsv")):
+            read_hp_by_chrom[chrom] = ckpt.load_read_hp(
+                f"read_hp_{chrom}.tsv")
         snp_records += snps
         for name, seq in ctgs.items():
             while name in contigs:            # cross-chrom PS id collision
                 name += "b"
             contigs[name] = seq
-    return contigs, snp_records
+    return contigs, snp_records, read_hp_by_chrom
 
 
 def cmd_asm(args) -> int:
@@ -278,12 +312,83 @@ def cmd_asm(args) -> int:
     if not read_seqs:
         log.error("asm requires --fastq or --bam")
         return 2
-    contigs, snp_records = _run_asm(ref, read_seqs, args, device)
+    contigs, snp_records, _read_hp = _run_asm(ref, read_seqs, args, device)
     _vcf_out(args.out_dir, "phased_snps.vcf", ref, snp_records)
     os.makedirs(args.out_dir, exist_ok=True)
     out = os.path.join(args.out_dir, "final_contigs.fa")
     write_fasta(out, contigs)
     log.info("assembly: %d contigs → %s", len(contigs), out)
+    return 0
+
+
+def cmd_sim(args) -> int:
+    """Synthesize ref + diploid SVs + reads (+ truth VCF) for testing."""
+    from . import sim
+    from .io.fasta import write_fasta
+    from .io.fastq import write_fastq
+    from .io.vcf import VcfRecord, make_header, write_vcf
+    rng = np.random.default_rng(args.seed)
+    os.makedirs(args.out_dir, exist_ok=True)
+    ref = sim.random_genome(rng, args.length, n_chroms=args.chroms)
+    if args.n_tandem or args.n_segdup or args.n_homopoly:
+        ref, feats = sim.implant_repeats(
+            rng, ref, n_tandem=args.n_tandem, n_segdup=args.n_segdup,
+            n_homopoly=args.n_homopoly)
+        from .io.bed import write_bed
+        write_bed(os.path.join(args.out_dir, "repeats.bed"),
+                  [(c, s, e, kind) for c, fs in feats.items()
+                   for kind, s, e in fs])
+    hap1, hap2, truth = sim.implant_svs(
+        rng, ref, n_del=args.n_del, n_ins=args.n_ins, n_inv=args.n_inv,
+        n_dup=args.n_dup, min_len=args.min_len, max_len=args.max_len,
+        n_clustered=args.n_clustered, n_nested=args.n_nested,
+        n_small=args.n_small)
+    # SNPs go in at REF coordinates BEFORE the translocation tail-swap (the
+    # swap moves hap sequence between chromosome records but every allele
+    # keeps its reference locus, so the truth coordinates stay valid)
+    hap1, hap2, truth_snps = sim.implant_snps_ref(
+        rng, ref, hap1, hap2, truth, rate=args.snp_rate)
+    if args.n_tra:
+        if args.chroms < 2:
+            log.error("--n_tra requires --chroms >= 2")
+            return 2
+        truth += sim.implant_tra(rng, ref, hap1, hap2, truth)
+    reads = sim.simulate_reads(
+        rng, {1: hap1, 2: hap2}, coverage=args.coverage,
+        read_len=args.read_len, sub_rate=args.err, indel_rate=args.err / 2)
+    write_fasta(os.path.join(args.out_dir, "ref.fa"), ref)
+    write_fastq(os.path.join(args.out_dir, "reads.fastq"),
+                ((n, s, None) for n, s, *_ in reads))
+    trecs = []
+    for i, t in enumerate(truth):
+        gt = "1|1" if t.gt == (1, 1) else ("1|0" if t.gt[0] else "0|1")
+        if t.svtype == "BND":
+            trecs.append(VcfRecord(
+                chrom=t.chrom, pos=t.pos + 1, id=f"truth-{i}", ref="N",
+                alt=f"N[{t.chrom2}:{t.pos2 + 1}[", gt=gt,
+                info={"SVTYPE": "BND", "CHR2": t.chrom2,
+                      "END": t.pos2 + 1}))
+            continue
+        trecs.append(VcfRecord(
+            chrom=t.chrom, pos=t.pos + 1, id=f"truth-{i}", ref="N",
+            alt=f"<{t.svtype}>", gt=gt,
+            info={"SVTYPE": t.svtype, "SVLEN": t.svlen,
+                  "END": t.pos + 1 + t.svlen}))
+    header = make_header({c: len(s) for c, s in ref.items()})
+    write_vcf(os.path.join(args.out_dir, "truth.vcf"), header, trecs)
+    # truth SNPs: GT encodes the carrying haplotype (1|0 = hap1, 0|1 =
+    # hap2, 1/1 = hom) — the phasing switch-error gate's ground truth
+    snp_recs = [VcfRecord(
+        chrom=s.chrom, pos=s.pos + 1, id=f"tsnp-{i}", ref=s.ref, alt=s.alt,
+        gt=("1/1" if s.hap == 0 else ("1|0" if s.hap == 1 else "0|1")))
+        for i, s in enumerate(truth_snps)]
+    order = {c: i for i, c in enumerate(ref)}
+    snp_recs.sort(key=lambda r: (order[r.chrom], r.pos))
+    write_vcf(os.path.join(args.out_dir, "truth_snps.vcf"), header, snp_recs)
+    contigs = sim.contigs_from_haplotypes(hap1, hap2)
+    write_fasta(os.path.join(args.out_dir, "true_contigs.fa"), contigs)
+    log.info("sim → %s (%d reads, %d truth SVs)", args.out_dir,
+             len(reads), len(truth))
     return 0
 
 
@@ -293,24 +398,86 @@ def cmd_vc_large_indel(args) -> int:
     ref = read_fasta(args.ref)
     contigs = read_fasta(args.contig)
     cfg = PipelineConfig.for_dtype(args.dtype, asm=args.asm)
-    bed = None
-    if args.bed:
-        from .io.bed import read_bed
-        bed = read_bed(args.bed)
+    bed = _load_bed(args)
     chroms = _restrict_chroms(args, list(ref), bed)
     with stage_timer("align-contigs", log):
         by_chrom = _align_by_chrom(ref, contigs, "asm5", device, chroms)
-    reads_by_chrom = None
-    if args.fastq or args.bam:
-        read_seqs = _load_reads(args)
-        with stage_timer("align-reads", log):
-            reads_by_chrom = _align_by_chrom(
-                ref, read_seqs, _read_preset(args.dtype), device, chroms)
+    reads_by_chrom = _reads_by_chrom(args, ref, device, chroms)
     reads_sigs = _reads_sigs_cached(args, cfg, reads_by_chrom, chroms)
     records = _call_large_indels(ref, by_chrom, contigs, cfg,
                                  reads_by_chrom, reads_sigs, chroms, device,
                                  include_bed=bed)
     _vcf_out(args.out_dir, "volcanosv_large_indel.vcf", ref, records)
+    return 0
+
+
+def cmd_vc_small_indel(args) -> int:
+    """Standalone small-indel subcommand: contigs aligned with `asm20`, each
+    chromosome called in turn (volcanosv-vc-small-indel.py)."""
+    from .io.fasta import read_fasta
+    from .vc.small_indel import call_small_indels
+    device = resolve_device(args.device)
+    ref = read_fasta(args.ref)
+    contigs = read_fasta(args.contig)
+    cfg = PipelineConfig.for_dtype(args.dtype)
+    chroms = _restrict_chroms(args, list(ref), _load_bed(args))
+    with stage_timer("align-contigs", log):
+        by_chrom = _align_by_chrom(ref, contigs, "asm20", device, chroms)
+    reads_by_chrom = _reads_by_chrom(args, ref, device, chroms)
+    records = []
+    for chrom in chroms:
+        with stage_timer(f"small-indel[{chrom}]", log):
+            records += call_small_indels(
+                chrom, by_chrom.get(chrom, []), ref[chrom], cfg,
+                reads_records=(reads_by_chrom or {}).get(chrom))
+    _vcf_out(args.out_dir, "volcanosv_small_indel.vcf", ref, records)
+    return 0
+
+
+def _harvest_ins_records(args, ref, contigs, cfg, chroms, device):
+    """INS calls driving DUP recovery (volcanosv-vc-complex-sv.py:131-138).
+
+    The reference's complex-SV script consumes the LARGE-INDEL VCF
+    (align_ins2ref.py input); --large_vcf reuses one instead of re-running
+    the large-indel caller per chromosome."""
+    from .io.vcf import read_vcf
+    from .vc.large_indel import call_chromosome
+    if args.large_vcf:
+        _h, recs = read_vcf(args.large_vcf)
+        return [r for r in recs if r.svtype == "INS" and r.chrom in chroms]
+    by_chrom = _align_by_chrom(ref, contigs, "asm5", device, chroms)
+    out = []
+    for chrom in chroms:
+        out += [r for r in call_chromosome(
+            chrom, by_chrom.get(chrom, []), ref[chrom], contigs, cfg,
+            device=device) if r.svtype == "INS"]
+    return out
+
+
+def cmd_vc_complex_sv(args) -> int:
+    """Standalone complex-SV subcommand: contigs aligned with `asm10`, the INS
+    calls of the large-indel caller (or --large_vcf) for DUP recovery, and
+    the WGS-global pairing over every chromosome
+    (volcanosv-vc-complex-sv.py)."""
+    from .io.fasta import read_fasta
+    from .vc.complex_sv import call_complex_svs
+    device = resolve_device(args.device)
+    ref = read_fasta(args.ref)
+    contigs = read_fasta(args.contig)
+    cfg = PipelineConfig.for_dtype(args.dtype)
+    chroms = _restrict_chroms(args, list(ref), _load_bed(args))
+    with stage_timer("align-contigs", log):
+        by_chrom = _align_by_chrom(ref, contigs, "asm10", device, chroms)
+    reads_by_chrom = _reads_by_chrom(args, ref, device, chroms)
+    ins_records = _harvest_ins_records(args, ref, contigs, cfg, chroms,
+                                       device)
+    ins_records.sort(key=lambda r: (r.chrom, r.pos, r.id))
+    with stage_timer("complex-sv", log):
+        records = call_complex_svs(by_chrom, ref, cfg,
+                                   ins_records=ins_records,
+                                   reads_by_chrom=reads_by_chrom,
+                                   device=device)
+    _vcf_out(args.out_dir, "volcanosv_complex_sv.vcf", ref, records)
     return 0
 
 
@@ -323,6 +490,87 @@ def cmd_eval(args) -> int:
         pctovl=args.pctovl, minsize=args.minsize),
         device=resolve_device(args.device))
     print(json.dumps(res.summary()))
+    return 0
+
+
+def cmd_merge_vcf(args) -> int:
+    from .io.vcf import merge_vcfs
+    n = merge_vcfs(args.vcfs, args.out_vcf)
+    log.info("merged %d records → %s", n, args.out_vcf)
+    return 0
+
+
+def cmd_run(args) -> int:
+    """Full pipeline: asm + all three vc paths + merge (one command), on
+    the reference's single-process path.
+
+    One read-alignment pass serves the assembly and every caller.  The
+    large-indel records are ordered by (chromosome rank, pos, id) before
+    they drive the DUP recovery; an INS the recovery reclassified leaves
+    the large-indel VCF (it is reported once, as <DUP>); the merged VCF
+    takes the large-indel, small-indel and complex-SV records in that
+    order."""
+    from .io.fasta import read_fasta, write_fasta
+    from .io.vcf import merge_vcfs
+    from .vc.complex_sv import call_complex_svs
+    from .vc.small_indel import call_small_indels
+    device = resolve_device(args.device)
+    ref = read_fasta(args.ref)
+    read_seqs = _load_reads(args)
+    if not read_seqs:
+        log.error("run requires --fastq or --bam")
+        return 2
+    cfg = PipelineConfig.for_dtype(args.dtype)
+    os.makedirs(args.out_dir, exist_ok=True)
+    chroms = list(ref)
+    with stage_timer("align-reads", log):
+        reads_by_chrom = _align_by_chrom(ref, read_seqs,
+                                         _read_preset(args.dtype), device,
+                                         chroms)
+    contigs, snp_records, read_hp_by_chrom = _run_asm(
+        ref, read_seqs, args, device, reads_by_chrom=reads_by_chrom)
+    write_fasta(os.path.join(args.out_dir, "final_contigs.fa"), contigs)
+    _vcf_out(args.out_dir, "phased_snps.vcf", ref, snp_records)
+    log.info("assembly: %d contigs", len(contigs))
+
+    with stage_timer("align-contigs", log):
+        li_by_chrom = _align_by_chrom(ref, contigs, "asm5", device, chroms)
+    reads_sigs = _reads_sigs_cached(args, cfg, reads_by_chrom, chroms)
+    large = _call_large_indels(ref, li_by_chrom, contigs, cfg,
+                               reads_by_chrom, reads_sigs, chroms, device,
+                               read_hp=read_hp_by_chrom)
+    rank = {c: i for i, c in enumerate(ref)}
+    large.sort(key=lambda r: (rank[r.chrom], r.pos, r.id))
+    ins_records = [r for r in large if r.svtype == "INS"]
+
+    with stage_timer("align-contigs", log):
+        si_by_chrom = _align_by_chrom(ref, contigs, "asm20", device, chroms)
+    small = []
+    for chrom in chroms:
+        with stage_timer(f"small-indel[{chrom}]", log):
+            small += call_small_indels(
+                chrom, si_by_chrom.get(chrom, []), ref[chrom], cfg,
+                reads_records=reads_by_chrom.get(chrom),
+                read_hp=read_hp_by_chrom.get(chrom))
+    p_small = _vcf_out(args.out_dir, "volcanosv_small_indel.vcf", ref, small)
+
+    with stage_timer("align-contigs", log):
+        cx_by_chrom = _align_by_chrom(ref, contigs, "asm10", device, chroms)
+    consumed: set = set()
+    with stage_timer("complex-sv", log):
+        complex_recs = call_complex_svs(cx_by_chrom, ref, cfg,
+                                        ins_records=ins_records,
+                                        reads_by_chrom=reads_by_chrom,
+                                        consumed_ins=consumed, device=device)
+    p_cx = _vcf_out(args.out_dir, "volcanosv_complex_sv.vcf", ref,
+                    complex_recs)
+    # an INS the DUP recovery reclassified is reported once, as <DUP>
+    # (align_ins2ref.py role)
+    large = [r for r in large if r.id not in consumed]
+    p_large = _vcf_out(args.out_dir, "volcanosv_large_indel.vcf", ref, large)
+    out = os.path.join(args.out_dir, "volcanosv_variants.vcf")
+    n = merge_vcfs([p_large, p_small, p_cx], out)
+    log.info("FINAL: %d variants → %s", n, out)
     return 0
 
 
@@ -371,6 +619,38 @@ def build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA port of the diploid SV engine")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
+    p = sub.add_parser("sim", help="synthesize test data")
+    p.add_argument("--out_dir", "-o", required=True)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--length", type=int, default=80_000)
+    p.add_argument("--chroms", type=int, default=1)
+    p.add_argument("--n_del", type=int, default=4)
+    p.add_argument("--n_ins", type=int, default=4)
+    p.add_argument("--n_inv", type=int, default=0)
+    p.add_argument("--n_dup", type=int, default=0)
+    p.add_argument("--n_tra", type=int, default=0,
+                   help="implant a reciprocal cross-chromosome "
+                        "translocation (needs --chroms >= 2)")
+    p.add_argument("--n_clustered", type=int, default=0,
+                   help="clustered DEL+INS pairs 600-900bp apart, per chrom")
+    p.add_argument("--n_nested", type=int, default=0,
+                   help="INVs with an interior deletion (nested), per chrom")
+    p.add_argument("--n_small", type=int, default=0,
+                   help="2-49bp indels (small-indel path truth), per chrom")
+    p.add_argument("--n_tandem", type=int, default=0,
+                   help="tandem repeat arrays in the REFERENCE, per chrom")
+    p.add_argument("--n_segdup", type=int, default=0,
+                   help="dispersed ~97%%-identity segdup pairs, per chrom")
+    p.add_argument("--n_homopoly", type=int, default=0,
+                   help="15-40bp homopolymer runs, per chrom")
+    p.add_argument("--min_len", type=int, default=60)
+    p.add_argument("--max_len", type=int, default=400)
+    p.add_argument("--snp_rate", type=float, default=1 / 1500)
+    p.add_argument("--coverage", type=float, default=24.0)
+    p.add_argument("--read_len", type=int, default=8_000)
+    p.add_argument("--err", type=float, default=0.001)
+    p.set_defaults(fn=cmd_sim)
+
     p = sub.add_parser("asm", help="phase + partition + assemble")
     _add_common(p, contig=False)
     p.add_argument("--chrom", help="restrict to one chromosome")
@@ -386,6 +666,18 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p, contig=True)
     p.set_defaults(fn=cmd_vc_large_indel)
 
+    p = sub.add_parser("vc-small-indel", help="small-indel calling (2-49bp)")
+    _add_common(p, contig=True)
+    p.set_defaults(fn=cmd_vc_small_indel)
+
+    p = sub.add_parser("vc-complex-sv", help="INV/DUP/TRA calling")
+    _add_common(p, contig=True)
+    p.add_argument("--large_vcf",
+                   help="large-indel VCF whose INS records drive DUP "
+                        "recovery (align_ins2ref.py input contract); "
+                        "without it the large-indel caller runs inline")
+    p.set_defaults(fn=cmd_vc_complex_sv)
+
     p = sub.add_parser("eval", help="truvari-equivalent SV benchmark")
     p.add_argument("--base", required=True, help="truth VCF")
     p.add_argument("--comp", required=True, help="call VCF")
@@ -396,6 +688,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-S", "--minsize", type=int, default=30)
     _add_device(p)
     p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("merge-vcf", help="merge VCFs (Merge_VCF.py)")
+    p.add_argument("vcfs", nargs="+")
+    p.add_argument("--out_vcf", required=True)
+    p.set_defaults(fn=cmd_merge_vcf)
+
+    p = sub.add_parser("run", help="full pipeline reads → merged VCF")
+    _add_common(p, contig=False)
+    p.set_defaults(fn=cmd_run)
     return ap
 
 

@@ -21,8 +21,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-import numpy as np
-
 from .device import DEFAULT_DEVICE, resolve_device
 from .io.vcf import VcfRecord
 
@@ -204,6 +202,65 @@ def evaluate(base: list[VcfRecord], comp: list[VcfRecord],
     tp = len(matches)
     return EvalResult(tp=tp, fp=len(cidx) - tp, fn=len(bidx) - tp,
                       gt_concordant=gt_ok, matches=matches)
+
+
+def evaluate_snps(truth: list[VcfRecord], calls: list[VcfRecord]) -> dict:
+    """SNP accuracy + phasing switch error vs sim truth.
+
+    Truth GT encodes the carrying haplotype (1|0 = hap1, 0|1 = hap2,
+    1/1 = hom — sim.implant_snps_ref).  A call is a TP when (chrom, pos,
+    alt) match and zygosity agrees.  Switch error is the standard
+    block-wise metric: within each called phase block (PS), order the
+    truth-matched het sites by position and count adjacent orientation
+    flips between the called phase and the truth haplotype — invariant to
+    the arbitrary global flip of each block (longshot/HapCUT2 convention).
+    """
+    t_by_key = {(r.chrom, r.pos): r for r in truth}
+    tp = 0
+    zyg_ok = 0
+    # (chrom, ps) -> [(pos, orient)]
+    blocks: dict[tuple, list[tuple[int, int]]] = {}
+    n_called = 0
+    for c in calls:
+        if len(c.ref) != 1 or len(c.alt) != 1:
+            continue
+        n_called += 1
+        t = t_by_key.get((c.chrom, c.pos))
+        if t is None or t.alt != c.alt:
+            continue
+        tp += 1
+        t_hom = t.gt in ("1/1", "1|1")
+        c_hom = c.gt in ("1/1", "1|1")
+        if t_hom == c_hom:
+            zyg_ok += 1
+        if not t_hom and not c_hom and "|" in c.gt and c.ps is not None:
+            t_hap = 1 if t.gt == "1|0" else 2
+            c_hap = 1 if c.gt == "1|0" else 2
+            blocks.setdefault((c.chrom, c.ps), []).append(
+                (c.pos, int(t_hap == c_hap)))
+    switches = 0
+    pairs = 0
+    for sites in blocks.values():
+        sites.sort()
+        for (p0, o0), (p1, o1) in zip(sites, sites[1:]):
+            pairs += 1
+            switches += int(o0 != o1)
+    return {
+        "snp_tp": tp,
+        "snp_recall": round(tp / max(len(t_by_key), 1), 4),
+        "snp_precision": round(tp / max(n_called, 1), 4),
+        "zygosity_concordance": round(zyg_ok / max(tp, 1), 4),
+        "switch_errors": switches,
+        "switch_pairs": pairs,
+        "switch_error_rate": round(switches / max(pairs, 1), 4),
+    }
+
+
+def evaluate_snp_files(truth_vcf: str, calls_vcf: str) -> dict:
+    from .io.vcf import read_vcf
+    _h1, truth = read_vcf(truth_vcf)
+    _h2, calls = read_vcf(calls_vcf)
+    return evaluate_snps(truth, calls)
 
 
 def evaluate_files(base_vcf: str, comp_vcf: str,

@@ -311,17 +311,13 @@ class BamScan:
         return out
 
 
-def scan_bam(path: str, n_threads: int = 0) -> BamScan | None:
-    """Native columnar scan; returns None when the native lib is missing
-    (callers fall back to BamReader)."""
+def scan_bam(path: str, n_threads: int = 0) -> BamScan:
+    """Native columnar scan (native/bamscan.cpp, parallel inflate); raises
+    ValueError on a malformed file."""
     from ..native import get_lib
     lib = get_lib()
-    if lib is None or not hasattr(lib, "bam_scan"):
-        return None
     import ctypes
     res = lib.bam_scan(path.encode(), n_threads)
-    if not res:
-        return None
     try:
         c = res.contents
         if c.error:

@@ -6,9 +6,10 @@ all-vs-all overlaps, BAM scanning, inversion-soup scanning).  They are host
 code: every device kernel of the port lives under `csrc/`.
 
 The library is built at first use into `<checkout>/build/native/`, never
-into the package directory.  As in the reference, a failed build leaves
-`get_lib()` at None and callers take their numpy paths, which give
-identical outputs.
+into the package directory.  A failed build raises `RuntimeError` with the
+compiler's message.  The port carries no numpy stand-in for a helper: the
+reference's do not give the helpers' outputs (its Python soup scan has no
+cap on its runs, for one), so a missing library would change the calls.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ["chain.cpp", "bamscan.cpp", "sketch.cpp", "seedchain.cpp",
             "ava.cpp", "soup.cpp"]
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
+CXX = "g++"
 
 
 def _lib_path() -> str:
@@ -29,39 +31,42 @@ def _lib_path() -> str:
     return os.path.join(BUILD_ROOT, "native", f"libvolcano_native_{tag}.so")
 
 
-def build_native(force: bool = False) -> str | None:
-    """Compile the native lib if needed; returns path or None on failure.
-    The library is written under a temporary name and renamed into place,
-    so concurrent processes never load a half-written file."""
+def build_native(force: bool = False) -> str:
+    """Compile the native lib if needed; returns its path, or raises
+    RuntimeError with the compiler's message.  The library is written under
+    a temporary name and renamed into place, so concurrent processes never
+    load a half-written file."""
     out = _lib_path()
     if os.path.exists(out) and not force:
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
     srcs = [os.path.join(_HERE, s) for s in _SOURCES]
-    cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+    cmd = [CXX, "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
            *srcs, "-o", tmp, "-lz", "-lpthread"]
     try:
-        subprocess.run(cmd, check=True, capture_output=True)
-    except (subprocess.CalledProcessError, FileNotFoundError):
-        return None
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"native helpers: compiler {CXX!r} not found "
+                           f"({e})") from e
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"native helpers: {CXX} exited {e.returncode}:\n"
+                           f"{e.stderr}") from e
     os.replace(tmp, out)
     return out
 
 
 _lib = None
-_tried = False
 
 
 def get_lib():
-    """ctypes handle to the native lib, or None (callers fall back to numpy)."""
-    global _lib, _tried
-    if _lib is None and not _tried:
-        _tried = True
-        path = build_native()
-        if path is not None:
-            _lib = ctypes.CDLL(path)
-            _configure(_lib)
+    """ctypes handle to the native lib, built at the first call; raises
+    RuntimeError when the build fails."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build_native())
+        _configure(lib)
+        _lib = lib
     return _lib
 
 

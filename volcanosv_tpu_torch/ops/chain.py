@@ -1,14 +1,14 @@
 """Anchor chaining: minimizer hits → colinear chains (minimap2-equivalent).
 
 The reference gets chains for free from minimap2 (Raw_variant_call.py:46-58).
-Here: a windowed chaining DP (C++ native kernel, numpy fallback) + greedy
-non-overlapping backtrack.  Multiple chains per query are kept — split-chain
-structure is exactly the split-read SV signal the large-indel caller consumes
-(extract_sig_from_split at extract_contig_signature_Hifi.py:307-371).
+Here: a windowed chaining DP + greedy non-overlapping backtrack, both in
+the C++ native helpers (native/seedchain.cpp).  Multiple chains per query
+are kept — split-chain structure is exactly the split-read SV signal the
+large-indel caller consumes (extract_sig_from_split at
+extract_contig_signature_Hifi.py:307-371).
 """
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,68 +34,16 @@ class Chain:
         self.n_anchors = len(self.anchors_q)
 
 
-def _chain_dp_np(q, t, k, max_pred, max_gap, bandwidth, gap_scale):
-    """Numpy fallback of native chain_dp (blocked python loop)."""
-    n = len(q)
-    f = np.full(n, float(k), np.float32)
-    pre = np.full(n, -1, np.int32)
-    for i in range(n):
-        lo = max(0, i - max_pred)
-        if lo == i:
-            continue
-        dq = q[i] - q[lo:i]
-        dt = t[i] - t[lo:i]
-        gap = np.abs(dt - dq)
-        m = np.minimum(np.minimum(dq, dt), k)
-        sc = f[lo:i] + m - (gap_scale * gap + 0.5 * np.log2(gap + 1.0))
-        sc = np.where((dq <= 0) | (dt <= 0) | (dq > max_gap) | (dt > max_gap)
-                      | (gap > bandwidth), -np.inf, sc)
-        j = int(np.argmax(sc))
-        if sc[j] > f[i]:
-            f[i] = sc[j]
-            pre[i] = lo + j
-    return f, pre
-
-
-def _backtrack_np(f, pre, min_score, min_anchors, max_chains):
-    n = len(f)
-    used = np.zeros(n, bool)
-    chain_id = np.full(n, -1, np.int32)
-    scores = []
-    for i in np.argsort(-f, kind="stable"):
-        if used[i] or f[i] < min_score or len(scores) >= max_chains:
-            continue
-        path = []
-        j = int(i)
-        while j >= 0 and not used[j]:
-            path.append(j)
-            j = int(pre[j])
-        start_f = f[j] if j >= 0 else 0.0
-        if len(path) < min_anchors or f[i] - start_f < min_score:
-            continue
-        cid = len(scores)
-        for j in path:
-            used[j] = True
-            chain_id[j] = cid
-        scores.append(float(f[i] - start_f))
-    return chain_id, np.array(scores, np.float32)
-
-
 def seed_chain_batch(code_list: list[np.ndarray], index, cfg: AlignConfig,
                      max_chains: int = 64, max_hits: int = 64,
                      max_pred: int = 48,
                      select: tuple[int, float] | None = None,
-                     ) -> list[list[Chain]] | None:
+                     ) -> list[list[Chain]]:
     """Fused native front-end for a BATCH of queries: sketch → index lookup
     → anchor expansion → per-strand chain DP → backtrack in one ctypes call
-    (threaded across host cores, GIL released so planning overlaps).
-
-    Output-identical to the per-query python path (sketch_np +
-    MinimizerIndex.anchors + chain_anchors): same kernels, same sort, same
-    backtrack.  Returns None when the native lib is unavailable."""
+    (threaded across host cores, GIL released so planning overlaps).  The
+    native lib is built at the first call; a failed build raises."""
     lib = get_lib()
-    if lib is None or not hasattr(lib, "seed_chain_batch"):
-        return None
     n = len(code_list)
     out: list[list[Chain]] = [[] for _ in range(n)]
     if n == 0:
@@ -145,58 +93,3 @@ def seed_chain_batch(code_list: list[np.ndarray], index, cfg: AlignConfig,
     for chains in out:
         chains.sort(key=lambda c: -c.score)
     return out
-
-
-def chain_anchors(
-    t_pos: np.ndarray, q_pos: np.ndarray, strand: np.ndarray, qlen: int,
-    cfg: AlignConfig, max_pred: int = 48, max_chains: int = 64,
-) -> list[Chain]:
-    """Chain (target, query, strand) anchors of one query.
-
-    For strand=-1 anchors, query coords are flipped (q' = qlen - k - q) so
-    both coordinates increase along the chain."""
-    chains: list[Chain] = []
-    lib = get_lib()
-    for s in (1, -1):
-        sel = strand == s
-        if sel.sum() < cfg.min_chain_anchors:
-            continue
-        t = t_pos[sel].astype(np.int64)
-        q = q_pos[sel].astype(np.int64)
-        if s == -1:
-            q = qlen - cfg.k - q
-        order = np.lexsort((q, t))
-        t, q = t[order], q[order]
-        n = len(t)
-        if lib is not None:
-            f = np.zeros(n, np.float32)
-            pre = np.zeros(n, np.int32)
-            lib.chain_dp(q, t, n, cfg.k, max_pred, cfg.max_anchor_gap,
-                         cfg.chain_bandwidth, 0.05, f, pre)
-            used = np.zeros(n, np.int8)
-            chain_id = np.zeros(n, np.int32)
-            out_scores = np.zeros(max_chains, np.float32)
-            n_chains = lib.chain_backtrack(
-                f, pre, n, float(cfg.min_chain_score),
-                cfg.min_chain_anchors, used, chain_id, out_scores, max_chains)
-            scores = out_scores[:n_chains]
-        else:
-            f, pre = _chain_dp_np(q, t, cfg.k, max_pred, cfg.max_anchor_gap,
-                                  cfg.chain_bandwidth, 0.05)
-            chain_id, scores = _backtrack_np(
-                f, pre, cfg.min_chain_score, cfg.min_chain_anchors, max_chains)
-        for cid in range(len(scores)):
-            sel_c = chain_id == cid
-            aq, at = q[sel_c], t[sel_c]
-            q_start, q_end = int(aq.min()), int(aq.max()) + cfg.k
-            if s == -1:
-                fq_start, fq_end = qlen - q_end, qlen - q_start
-            else:
-                fq_start, fq_end = q_start, q_end
-            chains.append(Chain(
-                q_start=fq_start, q_end=fq_end,
-                t_start=int(at.min()), t_end=int(at.max()) + cfg.k,
-                strand=s, score=float(scores[cid]),
-                anchors_q=aq, anchors_t=at))
-    chains.sort(key=lambda c: -c.score)
-    return chains

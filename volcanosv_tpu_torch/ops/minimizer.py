@@ -50,13 +50,13 @@ def _rolling_hashes_np(codes: np.ndarray, k: int):
 def sketch_np(codes: np.ndarray, k: int, w: int):
     """Minimizers of one sequence (host path, used for the reference index
     and contigs).  Dispatches to the O(L) native monotonic-deque kernel
-    (native/sketch.cpp) when available; this numpy path is the oracle.
+    (native/sketch.cpp) for k <= 31; the numpy path below serves longer k.
 
     Returns (pos (M,) int64, hash (M,) uint32, strand (M,) int8) where
     strand=0 if the canonical k-mer is the forward strand."""
     from ..native import get_lib
-    lib = get_lib()
-    if lib is not None and hasattr(lib, "sketch_dna") and k <= 31:
+    if k <= 31:
+        lib = get_lib()
         n = max(len(codes) - k + 1, 0)
         if n < w:
             return (np.zeros(0, np.int64), np.zeros(0, np.uint32),
@@ -143,31 +143,3 @@ class MinimizerIndex:
         """global coords → (seq_idx, local_pos)."""
         idx = np.searchsorted(self.offsets, gpos, side="right") - 1
         return idx, gpos - self.offsets[idx]
-
-    def lookup(self, q_hash: np.ndarray):
-        """For each query minimizer hash: matching index range [lo, hi)."""
-        lo = np.searchsorted(self.sorted_hash, q_hash, side="left")
-        hi = np.searchsorted(self.sorted_hash, q_hash, side="right")
-        return lo, hi
-
-    def anchors(self, q_pos: np.ndarray, q_hash: np.ndarray,
-                q_strand: np.ndarray, max_hits: int = 64):
-        """Expand query minimizers into anchors.
-
-        Returns (t_gpos, q_pos, strand) int64 arrays: strand +1 if query
-        minimizer strand matches reference strand else -1."""
-        lo, hi = self.lookup(q_hash)
-        cnt = np.minimum(hi - lo, max_hits)
-        total = int(cnt.sum())
-        if total == 0:
-            z = np.zeros(0, np.int64)
-            return z, z, z
-        qi = np.repeat(np.arange(len(q_hash)), cnt)
-        # flat index ranges
-        starts = lo
-        offs = np.arange(total) - np.repeat(np.cumsum(cnt) - cnt, cnt)
-        flat = np.repeat(starts, cnt) + offs
-        t_gpos = self.sorted_pos[flat]
-        t_strand = self.sorted_strand[flat]
-        strand = np.where(t_strand == q_strand[qi], 1, -1).astype(np.int64)
-        return t_gpos, q_pos[qi].astype(np.int64), strand
