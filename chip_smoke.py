@@ -96,11 +96,37 @@ Phase 5b `run` with `--device cuda` and with `--device cpu` on
          translocation and small indels, 20x): the merged VCF, the three
          callers' VCFs, final_contigs.fa, phased_snps.vcf and phased.bam
          byte-identical.
+Phase 6  QC and SD recovery on the card, each with `--device cuda` and
+         with `--device cpu`: `qc` on phase 4's contigs and reads
+         (flagger_blocks.bed byte-identical); the coverage HMM at
+         chromosome scale (the two haplotypes of a 250 Mb chromosome at
+         window 1000 in contigs of 120 kb - 5 Mb, 500,095 windows, a
+         padded (190, 4970, 4) batch): fit_coverage_hmm (the same
+         iterations, means and tau within rtol 1e-4), Viterbi labels
+         equal, the card's posteriors no further from a float64
+         forward-backward than twice the CPU's, each timed beside its bound;
+         `sd_recover` on tests/test_sd_recovery.py's recipe (equal
+         contigs, a re-assembled hap swapped in); `asm --sd` on phase 4b's
+         HiFi case (final_contigs.fa and phased_snps.vcf byte-identical).
+Phase 7  two ranks of one process group on the one card
+         (`python -m volcanosv_tpu_torch.parallel.multihost`; both on
+         cuda:0, device collectives over gloo, since NCCL takes one rank a
+         card): `run` on phase 5's golden sim, whose six outputs must be
+         phase 5's bytes; `vc-large-indel`, `vc-small-indel` and
+         `vc-complex-sv` on phase 5b's recipe, equal to one rank's; the
+         sharded step equal to one rank's on a 2 x 4 mesh of the card.
+         Each rank's device, backend, chromosomes, times and launches are
+         printed; every rank must launch both kernels.  Then the aligner's
+         DP batch split over an in-process mesh of the card twice: the
+         CIGARs of the unsplit call and of the CPU.
 
 Any failure raises.  On success the last four lines of standard
 output are the phases' summary (launches by shape, stage times, eval), the
 card's `nvidia-smi` name and power limit, one JSON object with the kernels'
-launches, errors, times and bounds, and the `{"ok": true, ...}` line.
+launches, errors, times and bounds (each path's entry is checked and
+timed at the shape that path launched most: phase 1's row there, or a
+check made at that shape after the paths ran), and the
+`{"ok": true, ...}` line.
 """
 from __future__ import annotations
 
@@ -296,19 +322,30 @@ def _pairs(rng, B: int, M: int, W: int, d_lo: int, unrelated=False):
     return q, t, qlen, tlen
 
 
-def phase1_kernels(seed: int):
-    import numpy as np
-    import torch
-
+def _scores_of(preset: str):
     from volcanosv_tpu_torch.config import AlignConfig
     from volcanosv_tpu_torch.ops import banded_align as ba
+    c = AlignConfig.preset(preset)
+    return ba.Scores(c.match, c.mismatch, c.gap_open, c.gap_extend,
+                     c.gap_open2, c.gap_extend2)
 
-    def scores_of(preset):
-        c = AlignConfig.preset(preset)
-        return ba.Scores(c.match, c.mismatch, c.gap_open, c.gap_extend,
-                         c.gap_open2, c.gap_extend2)
 
-    asm5, asm20 = scores_of("asm5"), scores_of("asm20")
+def _timed_once(fn):
+    import torch
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s.record()
+    out = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return out, s.elapsed_time(e)
+
+
+def phase1_kernels(seed: int):
+    import numpy as np
+
+    from volcanosv_tpu_torch.ops import banded_align as ba
+
+    asm5, asm20 = _scores_of("asm5"), _scores_of("asm20")
     # the consensus vote's scores (olc.py::_vote_scores in the JAX package)
     vote = ba.Scores(match=2, mismatch=-3, gap_open=-4, gap_extend=-2)
     row0 = dict(with_traceback=False, row0_scores=True)
@@ -349,121 +386,127 @@ def phase1_kernels(seed: int):
         ("pairing edit", 64, 1024, 128, -64, edit, score_only, False),
     ]
     rng = np.random.default_rng(seed)
-    dev = torch.device("cuda")
     dp_rows, walk_rows = [], []
     smem = _smem_latency()
     _log(f"shared-memory load-to-use latency: {smem['cycles']:.2f} cycles, "
          f"{smem['ns']:.3f} ns (one warp, pointer chase)")
-
-    def timed_once(fn):
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        out = fn()
-        e.record()
-        torch.cuda.synchronize()
-        return out, s.elapsed_time(e)
-
-    for case, B, M, W, d_lo, sc, kw, unrelated in cases:
-        mode = ba.dp_mode(sc, **kw)     # as banded_dp.shapes records it
-        q, t, ql, tl = _pairs(rng, B, M, W, d_lo, unrelated)
-        args = [torch.from_numpy(x).to(dev) for x in (q, t, ql, tl)]
-        plain, plain_ms = timed_once(
-            lambda: ba.banded_dp_plain(*args, W, d_lo, sc, **kw))
-        rows = torch.arange(M, device=dev)[None, :] < args[2][:, None]
-        taken = ba.banded_dp_branch(W)          # "warp" or "group"
-        branches = ["block", taken]
-        err = 0
-        for br in branches + ["auto"]:
-            kern = ba.banded_dp(*args, W, d_lo, sc, **kw, branch=br)
-            torch.cuda.synchronize()
-            err = max(err, int((kern[0] - plain[0]).abs().max()),
-                      int((kern[1] - plain[1]).abs().max()))
-            if kern[3] is not None:
-                err = max(err, int((kern[3] - plain[3]).T[rows].abs().max()))
-            if kern[2] is not None:
-                err = max(err, int((kern[2][rows].int()
-                                    - plain[2][rows].int()).abs().max()))
-            if err:
-                raise AssertionError(f"banded_dp {case} B={B} M={M} W={W} "
-                                     f"{br}: kernel != plain (max abs err "
-                                     f"{err})")
-        times = {br: [] for br in branches}
-        for br in branches + branches[::-1]:
-            times[br].append(_time_queued_ms(lambda: ba.banded_dp(
-                *args, W, d_lo, sc, **kw, branch=br)))
-        ms = statistics.mean(times[taken])
-        bound = _dp_bound(ql, tl, M, W, d_lo, _dp_kind(sc),
-                          kw.get("with_traceback", True),
-                          kw.get("row0_scores", False))
-        row = dict(case=case, mode=mode, B=B, M=M, W=W, d_lo=d_lo,
-                   unrelated=unrelated,
-                   branch=taken, max_abs_err=err, ms=ms,
-                   ms_by_branch={br: statistics.mean(v)
-                                 for br, v in times.items()},
-                   plain_ms=plain_ms, gcups=B * M * W / ms / 1e6,
-                   share_of_bound=bound["bound_ms"] / ms, **bound)
+    for case in cases:
+        row, wrow = _check_case(rng, smem, *case)
         dp_rows.append(row)
-        _log(f"banded_dp {json.dumps(row)}")
-        if kern[2] is None:
-            continue
-        tb = kern[2]
-        n_steps, _full = ba.walk_steps(M, W, ql, tl)
-        (pp, dp), wplain = timed_once(lambda: ba.tb_walk_plain(
-            tb, args[2], args[3], d_lo, n_steps))
-        ops_p = ba._unpack_ops(pp.cpu().numpy())
-        lengths = ba.walk_lengths(ops_p)
-        # a bound that cuts about half the walks short (done = false)
-        n_cut = max(4, int(np.median(lengths)) // 4 * 4)
-        pcut, dcut = ba.tb_walk_plain(tb, args[2], args[3], d_lo, n_cut)
-        ops_cut = ba._unpack_ops(pcut.cpu().numpy())
-        if not bool(dp.all()):
-            raise AssertionError(f"tb_walk {case}: plain walks unfinished "
-                                 "at the bucketed bound")
-        werr = 0
-        for br in ("thread", "warp", "auto"):
-            for steps, want, want_done in ((n_steps, ops_p, dp),
-                                           (n_cut, ops_cut, dcut)):
-                pk, dk = ba.tb_walk(tb, args[2], args[3], d_lo, steps,
-                                    branch=br)
-                ops_k = ba._unpack_ops(pk.cpu().numpy())
-                werr = max(werr, int(np.abs(ops_k.astype(np.int16)
-                                            - want).max()))
-                if werr or not torch.equal(dk, want_done):
-                    raise AssertionError(
-                        f"tb_walk {case} B={B} M={M} W={W} {br} at "
-                        f"{steps} steps: kernel != plain (streams or done)")
-                if steps == n_steps:
-                    ops_full = ops_k
-        ops_k = ops_full                 # "auto", the last design checked
-        # end to end: kernel DP + kernel walk vs plain DP + plain walk
-        pp2, _ = ba.tb_walk_plain(plain[2], args[2], args[3], d_lo, n_steps)
-        cig_k = ba._rle_columns(ops_k, B)
-        cig_p = ba._rle_columns(ba._unpack_ops(pp2.cpu().numpy()), B)
-        if cig_k != cig_p:
-            raise AssertionError(f"{case}: CIGARs differ between kernels "
-                                 "and plain versions")
-        wtimes = {"thread": [], "warp": []}
-        for br in ("thread", "warp", "warp", "thread"):
-            wtimes[br].append(_time_queued_ms(lambda: ba.tb_walk(
-                tb, args[2], args[3], d_lo, n_steps, branch=br)))
-        wtaken = "warp"                  # the design of "auto"
-        wms = statistics.mean(wtimes[wtaken])
-        wbound = _walk_bound(ops_k, n_steps, B)
-        chain_ms = int(lengths.max()) * smem["ns"] * 1e-6
-        wrow = dict(case=case, mode=mode, B=B, M=M, W=W, n_steps=n_steps,
-                    n_cut=n_cut,
-                    cut_unfinished=int((~dcut).sum()), branch=wtaken,
-                    max_abs_err=werr, ms=wms,
-                    ms_by_branch={br: statistics.mean(v)
-                                  for br, v in wtimes.items()},
-                    plain_ms=wplain, longest_walk=int(lengths.max()),
-                    chain_ms=chain_ms, share_of_chain=chain_ms / wms,
-                    share_of_bound=wbound["bound_ms"] / wms, **wbound)
-        walk_rows.append(wrow)
-        _log(f"tb_walk {json.dumps(wrow)}")
-        del kern, plain, tb
-        torch.cuda.empty_cache()
+        if wrow is not None:
+            walk_rows.append(wrow)
     return dp_rows, walk_rows, smem
+
+
+def _check_case(rng, smem: dict, case: str, B: int, M: int, W: int,
+                d_lo: int, sc, kw: dict, unrelated: bool):
+    """One phase-1 case on seeded `_pairs`: banded_dp's designs against
+    the plain DP, then (with a traceback) tb_walk's designs against the
+    plain walk, each checked and timed.  Returns (DP row, walk row or
+    None)."""
+    import numpy as np
+    import torch
+
+    from volcanosv_tpu_torch.ops import banded_align as ba
+    dev = torch.device("cuda")
+    mode = ba.dp_mode(sc, **kw)     # as banded_dp.shapes records it
+    q, t, ql, tl = _pairs(rng, B, M, W, d_lo, unrelated)
+    args = [torch.from_numpy(x).to(dev) for x in (q, t, ql, tl)]
+    plain, plain_ms = _timed_once(
+        lambda: ba.banded_dp_plain(*args, W, d_lo, sc, **kw))
+    rows = torch.arange(M, device=dev)[None, :] < args[2][:, None]
+    taken = ba.banded_dp_branch(W)          # "warp" or "group"
+    branches = ["block", taken]
+    err = 0
+    for br in branches + ["auto"]:
+        kern = ba.banded_dp(*args, W, d_lo, sc, **kw, branch=br)
+        torch.cuda.synchronize()
+        err = max(err, int((kern[0] - plain[0]).abs().max()),
+                  int((kern[1] - plain[1]).abs().max()))
+        if kern[3] is not None:
+            err = max(err, int((kern[3] - plain[3]).T[rows].abs().max()))
+        if kern[2] is not None:
+            err = max(err, int((kern[2][rows].int()
+                                - plain[2][rows].int()).abs().max()))
+        if err:
+            raise AssertionError(f"banded_dp {case} B={B} M={M} W={W} "
+                                 f"{br}: kernel != plain (max abs err "
+                                 f"{err})")
+    times = {br: [] for br in branches}
+    for br in branches + branches[::-1]:
+        times[br].append(_time_queued_ms(lambda: ba.banded_dp(
+            *args, W, d_lo, sc, **kw, branch=br)))
+    ms = statistics.mean(times[taken])
+    bound = _dp_bound(ql, tl, M, W, d_lo, _dp_kind(sc),
+                      kw.get("with_traceback", True),
+                      kw.get("row0_scores", False))
+    row = dict(case=case, mode=mode, B=B, M=M, W=W, d_lo=d_lo,
+               unrelated=unrelated,
+               branch=taken, max_abs_err=err, ms=ms,
+               ms_by_branch={br: statistics.mean(v)
+                             for br, v in times.items()},
+               plain_ms=plain_ms, gcups=B * M * W / ms / 1e6,
+               share_of_bound=bound["bound_ms"] / ms, **bound)
+    _log(f"banded_dp {json.dumps(row)}")
+    if kern[2] is None:
+        return row, None
+    tb = kern[2]
+    n_steps, _full = ba.walk_steps(M, W, ql, tl)
+    (pp, dp), wplain = _timed_once(lambda: ba.tb_walk_plain(
+        tb, args[2], args[3], d_lo, n_steps))
+    ops_p = ba._unpack_ops(pp.cpu().numpy())
+    lengths = ba.walk_lengths(ops_p)
+    # a bound that cuts about half the walks short (done = false)
+    n_cut = max(4, int(np.median(lengths)) // 4 * 4)
+    pcut, dcut = ba.tb_walk_plain(tb, args[2], args[3], d_lo, n_cut)
+    ops_cut = ba._unpack_ops(pcut.cpu().numpy())
+    if not bool(dp.all()):
+        raise AssertionError(f"tb_walk {case}: plain walks unfinished "
+                             "at the bucketed bound")
+    werr = 0
+    for br in ("thread", "warp", "auto"):
+        for steps, want, want_done in ((n_steps, ops_p, dp),
+                                       (n_cut, ops_cut, dcut)):
+            pk, dk = ba.tb_walk(tb, args[2], args[3], d_lo, steps,
+                                branch=br)
+            ops_k = ba._unpack_ops(pk.cpu().numpy())
+            werr = max(werr, int(np.abs(ops_k.astype(np.int16)
+                                        - want).max()))
+            if werr or not torch.equal(dk, want_done):
+                raise AssertionError(
+                    f"tb_walk {case} B={B} M={M} W={W} {br} at "
+                    f"{steps} steps: kernel != plain (streams or done)")
+            if steps == n_steps:
+                ops_full = ops_k
+    ops_k = ops_full                 # "auto", the last design checked
+    # end to end: kernel DP + kernel walk vs plain DP + plain walk
+    pp2, _ = ba.tb_walk_plain(plain[2], args[2], args[3], d_lo, n_steps)
+    cig_k = ba._rle_columns(ops_k, B)
+    cig_p = ba._rle_columns(ba._unpack_ops(pp2.cpu().numpy()), B)
+    if cig_k != cig_p:
+        raise AssertionError(f"{case}: CIGARs differ between kernels "
+                             "and plain versions")
+    wtimes = {"thread": [], "warp": []}
+    for br in ("thread", "warp", "warp", "thread"):
+        wtimes[br].append(_time_queued_ms(lambda: ba.tb_walk(
+            tb, args[2], args[3], d_lo, n_steps, branch=br)))
+    wtaken = "warp"                  # the design of "auto"
+    wms = statistics.mean(wtimes[wtaken])
+    wbound = _walk_bound(ops_k, n_steps, B)
+    chain_ms = int(lengths.max()) * smem["ns"] * 1e-6
+    wrow = dict(case=case, mode=mode, B=B, M=M, W=W, n_steps=n_steps,
+                n_cut=n_cut,
+                cut_unfinished=int((~dcut).sum()), branch=wtaken,
+                max_abs_err=werr, ms=wms,
+                ms_by_branch={br: statistics.mean(v)
+                              for br, v in wtimes.items()},
+                plain_ms=wplain, longest_walk=int(lengths.max()),
+                chain_ms=chain_ms, share_of_chain=chain_ms / wms,
+                share_of_bound=wbound["bound_ms"] / wms, **wbound)
+    _log(f"tb_walk {json.dumps(wrow)}")
+    del kern, plain, tb
+    torch.cuda.empty_cache()
+    return row, wrow
 
 
 def _write_case(d: str, seed: int, length: int, n_del: int, n_ins: int):
@@ -549,7 +592,6 @@ def _profile_summary(prof, wall_s: float) -> dict:
 
 def phase2_slice(seed: int, profile: bool):
     import contextlib
-    from collections import Counter
 
     import torch
 
@@ -578,8 +620,7 @@ def phase2_slice(seed: int, profile: bool):
     launches = {"banded_dp": ba.banded_dp.launches,
                 "tb_walk": ba.tb_walk.launches}
     dp_shapes = _dp_shapes(ba.banded_dp.shapes)
-    walk_shapes = [dict(branch=br, B=B, M=M, W=W, count=n)
-                   for (br, B, M, W), n in Counter(ba.tb_walk.shapes).items()]
+    walk_shapes = _walk_shapes(ba.tb_walk.shapes)
     if rc != 0:
         raise AssertionError(f"vc-large-indel exited {rc}")
     for name, n in launches.items():
@@ -613,7 +654,14 @@ def _dp_shapes(shapes) -> list[dict]:
     """banded_dp launches by (mode, design, B, M, W), with their count."""
     from collections import Counter
     return [dict(mode=m, branch=br, B=B, M=M, W=W, count=n)
-            for (m, br, B, M, W), n in Counter(shapes).items()]
+            for (m, br, B, M, W), n in Counter(map(tuple, shapes)).items()]
+
+
+def _walk_shapes(shapes) -> list[dict]:
+    """tb_walk launches by (design, B, M, W), with their count."""
+    from collections import Counter
+    return [dict(branch=br, B=B, M=M, W=W, count=n)
+            for (br, B, M, W), n in Counter(map(tuple, shapes)).items()]
 
 
 def phase2b_eval_alt() -> dict:
@@ -775,9 +823,7 @@ def phase4_asm(seed: int, profile: bool):
     launches = {"banded_dp": ba.banded_dp.launches,
                 "tb_walk": ba.tb_walk.launches}
     dp_shapes = _dp_shapes(ba.banded_dp.shapes)
-    from collections import Counter
-    walk_shapes = [dict(branch=br, B=B, M=M, W=W, count=n)
-                   for (br, B, M, W), n in Counter(ba.tb_walk.shapes).items()]
+    walk_shapes = _walk_shapes(ba.tb_walk.shapes)
     stages = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
     if rc != 0:
         raise AssertionError(f"asm exited {rc}")
@@ -1186,9 +1232,7 @@ def phase5_run_golden(profile: bool) -> dict:
     launches = {"banded_dp": ba.banded_dp.launches,
                 "tb_walk": ba.tb_walk.launches}
     dp_shapes = _dp_shapes(ba.banded_dp.shapes)
-    from collections import Counter
-    walk_shapes = [dict(branch=br, B=B, M=M, W=W, count=n)
-                   for (br, B, M, W), n in Counter(ba.tb_walk.shapes).items()]
+    walk_shapes = _walk_shapes(ba.tb_walk.shapes)
     cx_shapes = _dp_shapes(complex_shapes)
     stages = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
     if rc != 0:
@@ -1254,16 +1298,410 @@ def phase5b_run_cuda_vs_cpu() -> dict:
     return info
 
 
-def _row_at_top_shape(rows: list[dict], shapes: list[dict]) -> dict:
+# the coverage HMM at chromosome scale: the two haplotypes of a 250 Mb
+# chromosome at window 1000 (500,000 windows), assembled into contigs of
+# 120 kb - 5 Mb; the states drawn as runs (err, dup, hap, collapsed), the
+# coverage Poisson around 15x haploid (HiFi at 30x) with gamma-distributed
+# overdispersion
+HMM_CHROM, HMM_WINDOW, HMM_LAM = 250_000_000, 1_000, 15.0
+HMM_CONTIG = (120_000, 5_000_000)
+# operations of one window of the coverage HMM (qc/flagger.py), the least
+# its recursions need, at S states: the emission (a multiply, a subtract, a
+# divide and the valid select: 4S); Viterbi: S^2 transitions of two adds and
+# a compare, the backtrack's gather (1); forward and backward each: S^2 adds,
+# subtracts of the max and exps, and the sums' S^2 adds, then S maxes, logs
+# and adds of the max (4S^2 + 3S, and the emission's add: S); the posterior:
+# the add and the softmax's max, subtract, exp and divide (5S)
+
+
+def _hmm_ops(S: int, kind: str) -> int:
+    if kind == "viterbi":
+        return 4 * S + 3 * S * S + 1
+    return 4 * S + 2 * (4 * S * S + 4 * S) + 5 * S
+
+
+def _coverage_case(seed: int):
+    """(cov (B, T) float64, valid (B, T), contig lengths): the padded
+    batch evaluate_assembly builds, at chromosome scale."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 6)
+    lens = []
+    for _hap in range(2):
+        left = HMM_CHROM
+        while left > 0:
+            n = min(int(rng.integers(HMM_CONTIG[0], HMM_CONTIG[1] + 1)), left)
+            if left - n < HMM_CONTIG[0]:
+                n = left
+            lens.append(n)
+            left -= n
+    n_win = [-(-n // HMM_WINDOW) for n in lens]
+    T = max(n_win)
+    cov = np.zeros((len(lens), T))
+    valid = np.arange(T)[None, :] < np.asarray(n_win)[:, None]
+    mult = np.array([0.05, 0.5, 1.0, 2.0])
+    for b, n in enumerate(n_win):
+        # runs of ~500 windows: mostly hap, some collapsed, dup and err
+        brk = np.flatnonzero(rng.random(n) < 1 / 500)
+        seg = rng.choice(4, len(brk) + 1, p=[0.05, 0.1, 0.7, 0.15])
+        seg[0] = 2
+        state = seg[np.searchsorted(brk, np.arange(n), side="right")]
+        cov[b, :n] = rng.poisson(HMM_LAM * mult[state]
+                                 * rng.gamma(20.0, 1 / 20.0, n))
+    return cov, valid, lens
+
+
+def _count_kernels(fn):
+    """fn() with the launch counts set to 0 first: (its result, the counts
+    after, the launches' shapes: banded_dp's (mode, design, B, M, W) and
+    tb_walk's (design, B, M, W))."""
+    from volcanosv_tpu_torch.ops import banded_align as ba
+    ba.reset_launch_counts()
+    out = fn()
+    return out, {"banded_dp": ba.banded_dp.launches,
+                 "tb_walk": ba.tb_walk.launches}, \
+        (list(ba.banded_dp.shapes), list(ba.tb_walk.shapes))
+
+
+def _sd_case():
+    """tests/test_sd_recovery.py's recipe with the port's modules: one
+    20 kb sequence as both haplotypes' contig, hp2's coverage doubled over
+    6-12 kb, every read in both hap groups."""
+    import numpy as np
+
+    from volcanosv_tpu_torch.io.bam import BamRecord
+    from volcanosv_tpu_torch.sim import random_genome, simulate_reads
+    rng = np.random.default_rng(5)
+    seq = random_genome(rng, 20_000)["chr1"]
+    reads = simulate_reads(rng, {1: {"chr1": seq}}, coverage=14.0,
+                           read_len=4_000, read_len_sd=300, sub_rate=0.001,
+                           indel_rate=0.0)
+    groups = {h: [s for _n, s, *_ in reads]
+              for h in ("PS1_1_20000_hp1", "PS1_1_20000_hp2")}
+    contigs = {"PS1_1_20000_hp1_0": seq, "PS1_1_20000_hp2_0": seq}
+    spans = [(c, s, 3_000) for s in range(0, 18_000, 400) for c in (0, 1)] \
+        + [(1, s, 3_000) for s in range(6_000, 12_000, 200)]
+    roc = [BamRecord(name=f"r{i}", flag=0, ref_id=c, pos=p, mapq=60,
+                     cigar=np.array([[0, n]], np.int64), seq="A" * 4)
+           for i, (c, p, n) in enumerate(spans)]
+    return contigs, groups, roc
+
+
+def _cli_cuda_vs_cpu(args, out_dir: str, names: list[str], tag: str):
+    """One CLI command with --device cuda and --device cpu into
+    out_dir/{cuda,cpu}: the named outputs byte-identical.  Returns the
+    seconds on each, the card's launches and their shapes (`_count_kernels`)
+    and the output sizes."""
+    from volcanosv_tpu_torch import cli
+    secs, outs, launches, shapes = {}, {}, None, None
+    for device in ("cuda", "cpu"):
+        out = os.path.join(out_dir, device)
+        t0 = time.perf_counter()
+        rc, counts, launched = _count_kernels(
+            lambda: cli.main(args + ["-o", out, "--device", device]))
+        secs[device] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"phase 6: {tag} --device {device} failed")
+        if device == "cuda":
+            launches, shapes = counts, launched
+        outs[device] = {}
+        for name in names:
+            with open(os.path.join(out, name), "rb") as fh:
+                outs[device][name] = fh.read()
+    for name, want in outs["cpu"].items():
+        if outs["cuda"][name] != want or not want:
+            raise AssertionError(f"phase 6: {tag} {name} differs between "
+                                 "cuda and cpu")
+    return dict(s=secs, launches=launches, shapes=shapes,
+                banded_dp_shapes=_dp_shapes(shapes[0]),
+                tb_walk_shapes=_walk_shapes(shapes[1]),
+                bytes={n: len(b) for n, b in outs["cpu"].items()})
+
+
+def _hmm_at_scale(seed: int) -> dict:
+    """The coverage HMM at chromosome scale (`_coverage_case`), card
+    against CPU: fit_coverage_hmm (the same iterations; λ, τ and means
+    within rtol 1e-4), Viterbi labels equal, the card's posteriors no
+    further from a float64 forward-backward than twice the CPU's; each
+    timed beside its bound."""
+    import numpy as np
+    import torch
+
+    from volcanosv_tpu_torch.config import PipelineConfig
+    from volcanosv_tpu_torch.qc import flagger
+    cov, valid, lens = _coverage_case(seed)
+    B, T = cov.shape
+    cfg = PipelineConfig.for_dtype("Hifi").qc
+    S = cfg.n_states
+    n_post = []
+    post_fn = flagger.CoverageHMM.posteriors
+    flagger.CoverageHMM.posteriors = \
+        lambda self, *a, **kw: n_post.append(1) or post_fn(self, *a, **kw)
+    try:
+        t0 = time.perf_counter()
+        hmm = flagger.fit_coverage_hmm(cov, valid, cfg, "cpu")
+        fit_cpu = time.perf_counter() - t0
+        n_iter = len(n_post)
+        t0 = time.perf_counter()
+        hmm_cuda = flagger.fit_coverage_hmm(cov, valid, cfg, "cuda")
+        torch.cuda.synchronize()
+        fit_ms = (time.perf_counter() - t0) * 1e3
+        n_iter_cuda = len(n_post) - n_iter
+    finally:
+        flagger.CoverageHMM.posteriors = post_fn
+    fit = dict(n_iter=n_iter, n_iter_cuda=n_iter_cuda,
+               means=hmm.means.tolist(), means_cuda=hmm_cuda.means.tolist(),
+               tau=hmm.tau, tau_cuda=hmm_cuda.tau,
+               max_rel=float(np.max(np.abs(hmm_cuda.means / hmm.means - 1))))
+    # the fit's λ, τ and means: rtol 1e-4 (the posteriors' rounding, summed
+    # over 500,000 windows), with the same number of iterations
+    if n_iter != n_iter_cuda or fit["max_rel"] > 1e-4 \
+            or abs(hmm_cuda.tau / hmm.tau - 1) > 1e-4:
+        raise AssertionError(f"phase 6: fit_coverage_hmm card != CPU "
+                             f"{json.dumps(fit)}")
+    rows = []
+    n_win = B * T
+    for kind in ("viterbi", "posteriors"):
+        fn = getattr(hmm, kind)
+        t0 = time.perf_counter()
+        want = fn(cov, valid, "cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        got = fn(cov, valid, "cuda")                     # also the warm-up
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn(cov, valid, "cuda")
+        e.record()
+        torch.cuda.synchronize()
+        ms = s.elapsed_time(e)
+        out_bytes = 1 if kind == "viterbi" else 4 * S
+        row = dict(name=f"CoverageHMM.{kind}", B=B, T=T, S=S,
+                   windows=int(valid.sum()), ms=ms, cpu_ms=cpu_ms,
+                   ms_per_window_step=ms / T,
+                   **_bound(n_win * (5 + out_bytes), n_win * _hmm_ops(S, kind),
+                            FP32_OPS_PER_S))
+        row["share_of_bound"] = row["bound_ms"] / ms
+        if kind == "viterbi":
+            # emissions and transitions are the same bits on both devices
+            # and the recursion is adds and maxes: the labels are equal
+            if not np.array_equal(got, want):
+                raise AssertionError("phase 6: Viterbi labels card != CPU")
+            row["labels_equal"] = True
+        else:
+            # float32 sums of 5000 windows' log likelihoods round at
+            # |alpha| x 6e-8, and the card's exp and log round differently
+            # from the CPU's: the card is held to the float64
+            # forward-backward, at most twice as far from it as the CPU
+            exact = flagger.posteriors_float64(hmm, cov, valid)
+            cpu_err = float(np.abs(want - exact).max())
+            card_err = float(np.abs(got - exact).max())
+            row.update(max_abs_err=float(np.abs(got - want).max()),
+                       card_vs_f64=card_err, cpu_vs_f64=cpu_err,
+                       tolerance=2 * cpu_err)
+            if not card_err <= 2 * cpu_err:
+                raise AssertionError(f"phase 6: posteriors on the card "
+                                     f"further from float64 than twice "
+                                     f"the CPU's {json.dumps(row)}")
+        rows.append(row)
+        _log(f"phase 6: {json.dumps(row)}")
+    fit_row = dict(name="fit_coverage_hmm", ms=fit_ms, cpu_ms=fit_cpu * 1e3,
+                   **_bound(n_iter * n_win * (5 + 4 * S),
+                            n_iter * n_win * _hmm_ops(S, "posteriors"),
+                            FP32_OPS_PER_S), **fit)
+    fit_row["share_of_bound"] = fit_row["bound_ms"] / fit_ms
+    rows.append(fit_row)
+    _log(f"phase 6: {json.dumps(fit_row)}")
+    return dict(contigs=len(lens), windows=int(valid.sum()), rows=rows)
+
+
+def _sd_recover_cuda_vs_cpu() -> dict:
+    """sd_recover on `_sd_case`, card against CPU: equal contigs, and at
+    least one re-assembled contig swapped in."""
+    from volcanosv_tpu_torch.config import PipelineConfig
+    from volcanosv_tpu_torch.pipeline.sd import sd_recover
+    contigs, groups, roc = _sd_case()
+    pcfg = PipelineConfig.for_dtype("Hifi")
+    got = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        (out, qc), counts, _shapes = _count_kernels(lambda: sd_recover(
+            contigs, groups, roc, pcfg, device=device))
+        got[device] = (out, qc.collapsed, time.perf_counter() - t0, counts)
+    swapped = [c for c, s in got["cpu"][0].items() if s != contigs.get(c)]
+    if got["cuda"][:2] != got["cpu"][:2] or not swapped:
+        raise AssertionError(f"phase 6: sd_recover card != CPU or no hap "
+                             f"swapped ({swapped})")
+    info = dict(collapsed=got["cpu"][1], swapped=swapped,
+                s={k: v[2] for k, v in got.items()}, launches=got["cuda"][3])
+    _log(f"phase 6: sd_recover equal on cuda and cpu {json.dumps(info)}")
+    return info
+
+
+def phase6_qc_sd(seed: int) -> dict:
+    """QC and SD recovery on the card: `qc` on phase 4's contigs and reads,
+    the coverage HMM at chromosome scale, `sd_recover` and `asm --sd` on
+    phase 4b's HiFi case, each on cuda against cpu."""
+    info = {}
+    d4 = os.path.join(WORK, "asm")
+    info["qc"] = _cli_cuda_vs_cpu(
+        ["qc", "--ref", os.path.join(d4, "ref.fa"),
+         "--contig", os.path.join(d4, "out", "final_contigs.fa"),
+         "--fastq", os.path.join(d4, "reads.fastq")],
+        os.path.join(WORK, "qc"), ["flagger_blocks.bed"], "qc")
+    if info["qc"]["launches"]["banded_dp"] <= 0:
+        raise AssertionError("phase 6: qc launched no banded_dp")
+    _log(f"phase 6: qc on phase 4's contigs, flagger_blocks.bed "
+         f"byte-identical on cuda and cpu {json.dumps(info['qc'])}")
+    info["hmm"] = _hmm_at_scale(seed)
+    info["sd_recover"] = _sd_recover_cuda_vs_cpu()
+    d4b = os.path.join(WORK, "asm_cuda_vs_cpu")
+    info["asm_sd"] = _cli_cuda_vs_cpu(
+        ["asm", "--sd", "--ref", os.path.join(d4b, "ref.fa"),
+         "--fastq", os.path.join(d4b, "reads.fastq")],
+        os.path.join(WORK, "asm_sd"), ["final_contigs.fa", "phased_snps.vcf"],
+        "asm --sd")
+    _log(f"phase 6: asm --sd byte-identical on cuda and cpu "
+         f"{json.dumps(info['asm_sd'])}")
+    return info
+
+
+def _step_bound(n: int) -> dict:
+    """Bound of one rank's sharded step (parallel/step.py) on the multihost
+    module's inputs: the score-only DP of the rank's windows, the k-mer
+    table of its queries (5k + 4 operations a window, the 4^k table written
+    and all-reduced: read and written again), the stats."""
+    import numpy as np
+
+    from volcanosv_tpu_torch.parallel import multihost
+    q, t, ql, tl = multihost.step_inputs(n)
+    B = len(q) // n
+    k, W, d_lo = (multihost.STEP[x] for x in ("k", "W", "d_lo"))
+    dp = _dp_bound(ql[:B], tl[:B], q.shape[1], W, d_lo, "affine", False,
+                   False)
+    windows = int(np.maximum(ql[:B] - k + 1, 0).sum())
+    table = 4 * 4**k
+    return dict(B=B, M=q.shape[1], W=W, k=k, ranks=n, **_bound(
+        dp["bytes"] + 3 * table + 12 * n,
+        dp["ops"] + windows * (5 * k + 4) + table))
+
+
+def _mesh_split_check(seed: int) -> dict:
+    """The aligner's DP batch split over an in-process mesh of two devices
+    (here the one card twice: one DP and one walk launch each), against
+    the unsplit call on the card and the plain versions on the CPU: the
+    same CIGARs."""
+    import numpy as np
+
+    from volcanosv_tpu_torch.ops import banded_align as ba
+    from volcanosv_tpu_torch.parallel.mesh import make_mesh, set_active_mesh
+    q, t, qlen, tlen = _pairs(np.random.default_rng(seed + 7), 256, 512,
+                              128, -64)
+    args = dict(W=128, d_lo=-64)
+    want = ba.banded_align_cigars(q, t, qlen, tlen, device="cpu", **args)
+    unsplit = ba.banded_align_cigars(q, t, qlen, tlen, device="cuda", **args)
+    set_active_mesh(make_mesh(devices=["cuda:0", "cuda:0"]))
+    try:
+        split, launches, _shapes = _count_kernels(lambda: ba.banded_align_cigars(
+            q, t, qlen, tlen, device="cuda", **args))
+    finally:
+        set_active_mesh(None)
+    if not split == unsplit == want or launches != {"banded_dp": 2,
+                                                    "tb_walk": 2}:
+        raise AssertionError(f"phase 7: the mesh split's CIGARs differ or "
+                             f"it launched {launches}")
+    return dict(B=len(q), M=q.shape[1], launches=launches)
+
+
+def phase7_two_ranks(seed: int) -> dict:
+    """Two ranks of one process group on the one card
+    (`python -m volcanosv_tpu_torch.parallel.multihost`): `run` on phase 5's
+    golden sim against phase 5's one-process outputs, the three vc drivers
+    on phase 5b's recipe against one rank, the sharded step against one
+    rank; then the in-process mesh's DP split (`_mesh_split_check`)."""
+    d = os.path.join(WORK, "multihost")
+    out = os.path.join(d, "multihost.json")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "volcanosv_tpu_torch.parallel.multihost",
+         "--n", "2", "--device", "cuda", "--work", d,
+         "--sim_dir", os.path.join(WORK, "run_cuda_vs_cpu", "sim"),
+         "--full", "--run_sim_dir", os.path.join(WORK, "golden", "sim"),
+         "--run_reference", os.path.join(WORK, "golden", "out"),
+         "--out", out, "--timeout", "600"],
+        cwd=REPO, capture_output=True, text=True, timeout=700)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"phase 7: two ranks failed (exit "
+                             f"{r.returncode}):\n{r.stderr[-4000:]}")
+    with open(out) as fh:
+        res = json.load(fh)
+    ranks = [dict(rank=row["rank"], device=row["device"],
+                  backend=row["backend"],
+                  own_chroms={"vc": row["own_sim_chroms"],
+                              "run": row["own_run_chroms"]},
+                  wall_s=row["wall_s"], seconds=row["seconds"],
+                  step_s=row["step_s"], launches=row["launches"],
+                  run_collectives=row["run_collectives"],
+                  run_banded_dp_shapes=_dp_shapes(
+                      row["run_shapes"]["banded_dp"]),
+                  run_tb_walk_shapes=_walk_shapes(
+                      row["run_shapes"]["tb_walk"]))
+             for row in res["rows"]]
+    for row in ranks:
+        for path, counts in row["launches"].items():
+            if min(counts.values()) <= 0:
+                raise AssertionError(f"phase 7: rank {row['rank']} launched "
+                                     f"no kernel in {path}: {counts}")
+    info = dict(wall_s=wall, ranks=ranks, single_s=res["single_s"],
+                run_shapes=[sum((row["run_shapes"][k] for row in res["rows"]),
+                                []) for k in ("banded_dp", "tb_walk")],
+                step=_step_bound(res["n_processes"]),
+                mesh_split=_mesh_split_check(seed),
+                ranks_s=res["ranks_s"], run_identical=res["run_identical"],
+                vc_identical={k: res[k] for k in (
+                    "large_vcf_identical", "small_vcf_identical",
+                    "complex_vcf_identical")},
+                step_identical=res["step_identical"])
+    _log(f"phase 7: two ranks on one card, outputs = one process's "
+         f"{json.dumps(info)}")
+    return info
+
+
+def _check_top_shape(rng, smem: dict, top: dict):
+    """Phase 1's check (`_check_case`) at a launch shape it does not hold:
+    banded_dp's (mode, design, B, M, W), or tb_walk's (design, B, M, W)
+    checked on an affine traceback DP.  The mode names the scores' kind
+    (edit, affine: asm5, dual-affine: asm20) and the DP flags; the band
+    sits at d_lo = -W/2.  Returns (DP row, walk row or None)."""
+    from volcanosv_tpu_torch.ops import banded_align as ba
+    mode = top.get("mode", "affine+traceback")
+    kind, *flags = mode.split("+")
+    sc = {"edit": ba.Scores.edit(), "affine": _scores_of("asm5"),
+          "dual-affine": _scores_of("asm20")}[kind]
+    kw = dict(with_traceback="traceback" in flags,
+              row0_scores="row0" in flags, free_t_end="free_t_end" in flags,
+              free_t_start="free_t_start" in flags)
+    B, M, W = top["B"], top["M"], top["W"]
+    if ba.dp_mode(sc, **kw) != mode or (
+            "mode" in top and ba.banded_dp_branch(W) != top["branch"]):
+        raise AssertionError(f"no phase-1 case reproduces {top}")
+    return _check_case(rng, smem, f"top shape {mode}", B, M, W, -(W // 2),
+                       sc, kw, False)
+
+
+def _row_at_top_shape(rows: list[dict], shapes: list[dict],
+                      check=None) -> dict:
     """The phase-1 row at the launch a path made most often: the same
-    (mode, design, B, M, W) for banded_dp, (design, B, M, W) for tb_walk."""
+    (mode, design, B, M, W) for banded_dp, (design, B, M, W) for tb_walk.
+    Where phase 1 holds no such row, check(top) checks that shape and
+    returns its row (without `check`: raises)."""
     top = max(shapes, key=lambda r: r["count"])
     keys = [k for k in ("mode", "branch", "B", "M", "W") if k in top]
     for r in rows:
         if all(r[k] == top[k] for k in keys):
             return r
-    raise AssertionError(f"phase 1 checks no shape the path launched most: "
-                         f"{top}")
+    if check is None:
+        raise AssertionError(f"phase 1 checks no shape the path launched "
+                             f"most: {top}")
+    return check(top)
 
 
 def main() -> int:
@@ -1273,6 +1711,7 @@ def main() -> int:
                     help="trace phases 2, 4 and 5 with torch.profiler and "
                          "print the device time by kernel")
     args = ap.parse_args()
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         _log("chip_smoke: no CUDA device")
@@ -1305,7 +1744,51 @@ def main() -> int:
     info["asm_cuda_vs_cpu"] = phase4b_asm_cuda_vs_cpu(args.seed, kept)
     info["run"] = phase5_run_golden(args.profile)
     info["run_cuda_vs_cpu"] = phase5b_run_cuda_vs_cpu()
+    info["qc_sd"] = phase6_qc_sd(args.seed)
+    info["two_ranks"] = phase7_two_ranks(args.seed)
     _log(f"total {time.perf_counter() - t_start:.1f} s")
+
+    # each path's most-launched shapes, checked here where phase 1 holds
+    # no row at them (these launches are not the paths' counts)
+    rng = np.random.default_rng(args.seed + 9)
+
+    def check(top):
+        row, wrow = _check_top_shape(rng, smem, top)
+        dp_rows.append(row)
+        if wrow is not None:
+            walk_rows.append(wrow)
+        return row if "mode" in top else wrow
+
+    asm_dp = _row_at_top_shape(dp_rows, info["asm"]["banded_dp_shapes"],
+                               check)
+    asm_walk = _row_at_top_shape(walk_rows, info["asm"]["tb_walk_shapes"],
+                                 check)
+    asm_launches = info["asm"]["launches"]
+    pair_dp = _row_at_top_shape(
+        dp_rows, [r for r in info["run"]["complex_sv_shapes"]
+                  if r["mode"] == PAIRING_MODE and r["W"] == PAIRING_W],
+        check)
+    # this slice's paths: qc and asm --sd on the card (phase 6), `run`
+    # over two ranks (phase 7, summed over the ranks)
+    qc_sd = info["qc_sd"]
+    paths = {
+        "qc": ("qc and asm --sd",
+               {k: qc_sd["qc"]["launches"][k] + qc_sd["asm_sd"]["launches"][k]
+                for k in ("banded_dp", "tb_walk")},
+               [qc_sd["qc"]["shapes"][i] + qc_sd["asm_sd"]["shapes"][i]
+                for i in range(2)]),
+        "ranks": ("run over two ranks",
+                  {k: sum(r["launches"]["run"][k]
+                          for r in info["two_ranks"]["ranks"])
+                   for k in ("banded_dp", "tb_walk")},
+                  info["two_ranks"]["run_shapes"]),
+    }
+    path_rows = {tag: (_row_at_top_shape(dp_rows, _dp_shapes(dp), check),
+                       _row_at_top_shape(walk_rows, _walk_shapes(walk),
+                                         check))
+                 for tag, (_p, _n, (dp, walk)) in paths.items()}
+    _log(f"top shapes of qc/asm --sd and of the two ranks' run: "
+         f"{json.dumps(path_rows)}")
 
     warp_rows = [r for r in dp_rows if r["branch"] == "warp"]
     group_rows = [r for r in dp_rows if r["branch"] == "group"]
@@ -1313,12 +1796,6 @@ def main() -> int:
     # asm path's: the consensus vote's band
     head_dp, head_walk = warp_rows[0], walk_rows[0]
     head_group = group_rows[0]
-    asm_dp = _row_at_top_shape(dp_rows, info["asm"]["banded_dp_shapes"])
-    asm_walk = _row_at_top_shape(walk_rows, info["asm"]["tb_walk_shapes"])
-    asm_launches = info["asm"]["launches"]
-    pair_dp = _row_at_top_shape(
-        dp_rows, [r for r in info["run"]["complex_sv_shapes"]
-                  if r["mode"] == PAIRING_MODE and r["W"] == PAIRING_W])
     dp_src = dict(route="cuda", source="volcanosv_tpu_torch/csrc/banded_dp.cu",
                   replaces="volcanosv_tpu/ops/pallas/banded_dp.py:46")
     walk_src = dict(route="cuda", source="volcanosv_tpu_torch/csrc/tb_walk.cu",
@@ -1368,6 +1845,20 @@ def main() -> int:
              bound_by=pair_dp["bound_by"], library_ms=None,
              shapes=[pair_dp]),
     ]
+    for tag, (path, counts, _shapes) in paths.items():
+        dp, walk = path_rows[tag]
+        kernels.append(dict(
+            name=f"banded_dp_{tag}", **dp_src, design=dp["branch"],
+            path=path, launches=counts["banded_dp"],
+            max_abs_err=dp["max_abs_err"], ms=dp["ms"],
+            plain_ms=dp["plain_ms"], bound_ms=dp["bound_ms"],
+            bound_by=dp["bound_by"], library_ms=None, shapes=[dp]))
+        kernels.append(dict(
+            name=f"tb_walk_{tag}", **walk_src, path=path,
+            launches=counts["tb_walk"], max_abs_err=walk["max_abs_err"],
+            ms=walk["ms"], plain_ms=walk["plain_ms"],
+            bound_ms=walk["bound_ms"], bound_by=walk["bound_by"],
+            library_ms=None, shapes=[walk]))
     print(json.dumps(info))
     print(smi)
     print(json.dumps({"kernels": kernels}))

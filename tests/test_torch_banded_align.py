@@ -319,6 +319,24 @@ def test_dispatchers_match_reference_on_cpu():
         np.asarray(ref.edit_distance_batch_auto(q, t, qlen, tlen, W=W)))
 
 
+def test_banded_align_auto_matches_reference_on_cpu():
+    """Scores, end columns and each row's traceback CIGAR."""
+    rng = np.random.default_rng(23)
+    W, d_lo = 128, -64
+    q, t, qlen, tlen = _case(rng, 6, 192, W, d_lo, indel_rate=0.06)
+    s, tb_get, ej = port.banded_align_auto(q, t, qlen, tlen, W=W, d_lo=d_lo,
+                                           device="cpu")
+    rs, rtb_get, rej = ref.banded_align_auto(q, t, qlen, tlen, W=W,
+                                             d_lo=d_lo)
+    np.testing.assert_array_equal(s, np.asarray(rs))
+    np.testing.assert_array_equal(ej, np.asarray(rej))
+    for b in range(len(q)):
+        assert port.traceback_cigar(tb_get(b), int(qlen[b]), int(tlen[b]),
+                                    d_lo) == \
+            ref.traceback_cigar(rtb_get(b), int(qlen[b]), int(tlen[b]),
+                                d_lo=d_lo)
+
+
 def test_cpu_path_counts_no_launches():
     port.reset_launch_counts()
     q, t, qlen, tlen = _case(np.random.default_rng(1), 2, 64, 64, -32)

@@ -270,7 +270,10 @@ def _entry_point_calls(tmp_path):
     from volcanosv_tpu_torch.ops import banded_align as ba
     from volcanosv_tpu_torch.partition import partition
     from volcanosv_tpu_torch.phasing import phase, pileup, realign
-    from volcanosv_tpu_torch.pipeline import asm
+    from volcanosv_tpu_torch.parallel import (build_sharded_align_step,
+                                              make_mesh, multihost)
+    from volcanosv_tpu_torch.pipeline import asm, sd
+    from volcanosv_tpu_torch.qc import flagger
     from volcanosv_tpu_torch.vc import complex_sv, large_indel, redundancy
     pcfg = config.PipelineConfig.for_dtype("Hifi")
     pairs = [("ACGTACGT", "ACGTTCGT")]
@@ -278,7 +281,24 @@ def _entry_point_calls(tmp_path):
     codes = np.zeros(40, np.int8)
     win = np.zeros((1, 3), np.int8)
     polish = config.AlignConfig.preset("polish")
+    cov = np.full((1, 3), 10.0)
+    hmm = flagger.CoverageHMM.from_lambda(10.0)
     return {
+        "CoverageHMM.viterbi": lambda: hmm.viterbi(cov, cov > 0),
+        "CoverageHMM.posteriors": lambda: hmm.posteriors(cov, cov > 0),
+        "fit_coverage_hmm": lambda: flagger.fit_coverage_hmm(
+            cov, cov > 0, pcfg.qc),
+        "evaluate_assembly": lambda: flagger.evaluate_assembly(
+            {}, [], [], pcfg.qc),
+        "sd_recover": lambda: sd.sd_recover({}, {}, [], pcfg),
+        "make_mesh": lambda: make_mesh(),
+        "build_sharded_align_step": lambda: build_sharded_align_step(),
+        "banded_align_auto": lambda: ba.banded_align_auto(*_dp_batch()),
+        "multihost.main": lambda: multihost.main(
+            ["--work", str(tmp_path / "absent_work")]),
+        "eval.main": lambda: port_eval.main(
+            ["--base", str(tmp_path / "absent_base.vcf"),
+             "--comp", str(tmp_path / "absent_comp.vcf")]),
         "pileup_chromosome": lambda: pileup.pileup_chromosome(
             [], codes, pcfg.phasing),
         "phase_chromosome": lambda: phase.phase_chromosome(
@@ -339,7 +359,11 @@ def _entry_point_calls(tmp_path):
     "build_hap_tables", "partition_reads", "consensus_poa_many",
     "polish_many", "polish_grouped", "assemble_block", "run_assembly",
     "assemble_chromosome", "pair_candidates_by_sequence",
-    "recover_dups_from_ins", "call_inversions", "call_complex_svs"])
+    "recover_dups_from_ins", "call_inversions", "call_complex_svs",
+    "CoverageHMM.viterbi", "CoverageHMM.posteriors", "fit_coverage_hmm",
+    "evaluate_assembly", "sd_recover", "make_mesh",
+    "build_sharded_align_step", "banded_align_auto", "multihost.main",
+    "eval.main"])
 def test_entry_points_default_to_cuda(tmp_path, entry):
     """Every public entry point runs on the card unless asked for the CPU:
     without `device` on a host with no CUDA it raises before any work (the
@@ -366,10 +390,60 @@ def test_device_cuda_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["asm", "--ref", str(tmp_path / "r.fa"),
               "--fastq", str(tmp_path / "r.fq"), "-o", str(tmp_path)])
-    for cmd in ("vc-small-indel", "vc-complex-sv"):
+    for cmd in ("vc-small-indel", "vc-complex-sv", "qc"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main([cmd, "--ref", str(tmp_path / "r.fa"),
                   "--contig", str(tmp_path / "c.fa"), "-o", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["run", "--ref", str(tmp_path / "r.fa"),
               "--fastq", str(tmp_path / "r.fq"), "-o", str(tmp_path)])
+
+
+def test_eval_module_entry_matches_reference(tmp_path):
+    """`python -m volcanosv_tpu_torch.eval` takes the JAX package's flags
+    and prints its JSON."""
+    from volcanosv_tpu_torch.io.vcf import VcfRecord, make_header, write_vcf
+    base = [VcfRecord(chrom="chr1", pos=p, id=f"t{i}", ref="N",
+                      alt=f"<{k}>", gt="0|1",
+                      info={"SVTYPE": k, "SVLEN": n, "END": p + n})
+            for i, (p, k, n) in enumerate([(1000, "DEL", 120),
+                                           (5000, "INS", 300),
+                                           (9000, "DEL", 45)])]
+    comp = [dataclasses.replace(base[0], pos=1010, id="c0", gt="1|1"),
+            dataclasses.replace(base[1], pos=5200, id="c1"),
+            dataclasses.replace(base[2], pos=20000, id="c2")]
+    header = make_header({"chr1": 50_000})
+    write_vcf(str(tmp_path / "base.vcf"), header, base)
+    write_vcf(str(tmp_path / "comp.vcf"), header, comp)
+    args = ["--base", str(tmp_path / "base.vcf"),
+            "--comp", str(tmp_path / "comp.vcf"), "-r", "300", "-S", "40"]
+    outs = [subprocess.run([sys.executable, "-m", mod, *args, *extra],
+                           cwd=REPO, capture_output=True, text=True,
+                           timeout=120)
+            for mod, extra in (("volcanosv_tpu.eval", []),
+                               ("volcanosv_tpu_torch.eval",
+                                ["--device", "cpu"]))]
+    for r in outs:
+        assert r.returncode == 0, r.stderr[-2000:]
+    got = outs[1].stdout.strip().splitlines()[-1]
+    assert got == outs[0].stdout.strip().splitlines()[-1]
+    assert '"TP": 2, "FP": 1, "FN": 1' in got
+
+
+def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    """`--profile_trace DIR`: a torch.profiler trace of the command."""
+    import json
+
+    from volcanosv_tpu_torch.cli import main
+    assert main(["sim", "-o", str(tmp_path / "sim"), "--length", "6000",
+                 "--n_del", "0", "--n_ins", "0", "--coverage", "6",
+                 "--read_len", "2000"]) == 0
+    assert main(["qc", "--ref", str(tmp_path / "sim" / "ref.fa"),
+                 "--contig", str(tmp_path / "sim" / "true_contigs.fa"),
+                 "--fastq", str(tmp_path / "sim" / "reads.fastq"),
+                 "-o", str(tmp_path / "qc"), "--device", "cpu",
+                 "--profile_trace", str(tmp_path / "trace")]) == 0
+    with open(tmp_path / "trace" / "trace.json") as fh:
+        events = json.load(fh)["traceEvents"]
+    assert any(str(e.get("name", "")).startswith("aten::") for e in events)
+    assert (tmp_path / "qc" / "flagger_blocks.bed").exists()

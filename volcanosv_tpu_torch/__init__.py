@@ -6,9 +6,10 @@ compute in torch: hand-written CUDA kernels for Hopper under `csrc/` on a
 GPU, their plain PyTorch versions on the CPU.  The package never imports
 jax or volcanosv_tpu.
 
-Ported so far: the `vc-large-indel` path (contigs and optional reads →
-alignment → signatures → pairing → FP filter → redundancy removal →
-coverage band-pass → GT correction → phased VCF) and `eval`.
+Every module of the JAX package has its counterpart here: the `sim`,
+`asm` (with `--sd`), `qc`, `vc-large-indel`, `vc-small-indel`,
+`vc-complex-sv`, `eval`, `merge-vcf` and `run` subcommands, and the
+multi-process drivers over `torch.distributed` (`parallel/`).
 """
 
 __version__ = "0.1.0"

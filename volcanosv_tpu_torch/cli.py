@@ -3,7 +3,9 @@ files as `volcanosv_tpu.cli`, plus `--device`:
 
     python -m volcanosv_tpu_torch.cli sim            -o sim/ [--seed 0] ...
     python -m volcanosv_tpu_torch.cli asm            --ref ref.fa (--fastq reads.fq | --bam reads.bam) \\
-        -o out/ [--hybrid_bed regions.bed] [--emit_fastqs] [--device cuda]
+        -o out/ [--sd] [--hybrid_bed regions.bed] [--emit_fastqs] [--device cuda]
+    python -m volcanosv_tpu_torch.cli qc             --ref ref.fa --contig contigs.fa --fastq reads.fq \\
+        -o out/ [--device cuda]
     python -m volcanosv_tpu_torch.cli vc-large-indel --ref ref.fa --contig contigs.fa \\
         [--fastq reads.fq | --bam reads.bam] -o out/ [--device cuda]
     python -m volcanosv_tpu_torch.cli vc-small-indel --ref ref.fa --contig contigs.fa \\
@@ -16,10 +18,20 @@ files as `volcanosv_tpu.cli`, plus `--device`:
         [--resume] [--device cuda]
 
 `--device` names the torch device the device stages run on (default
-`cuda`); asking for CUDA on a host without it raises.  The drivers run in
-one process: each chromosome of the reference is assembled or called here,
-and the WGS-global coverage median is the host median of all chromosomes'
-values (the single-process path of the reference).
+`cuda`); asking for CUDA on a host without it raises.  `--profile_trace
+DIR` writes a torch.profiler trace of the whole command (Chrome/Perfetto
+JSON) into DIR.
+
+`vc-large-indel`, `vc-small-indel`, `vc-complex-sv` and `run` also run as
+N ranks of one `torch.distributed` group (torchrun's environment, or
+`python -m volcanosv_tpu_torch.parallel.multihost`; see parallel/mesh.py):
+each rank owns a round-robin share of the chromosomes and aligns a
+contiguous 1/N slice of the queries, the records are exchanged through
+<out_dir>/xch/, the WGS-global coverage median is taken over every rank's
+values, each rank writes its chromosomes' records as a part file and rank 0
+merges them.  The outputs are those of one process, byte for byte.  `asm`
+under such a group assembles the rank's chromosomes and writes
+phased_p<rank>.bam.
 
 The `--contig` FASTAs use the reference's contig naming contract
 (PS<pb>_<start>_<end>_hp{1,2}_<n>, or hp1/hp2-only names for whole-haplotype
@@ -27,6 +39,7 @@ assemblies)."""
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import sys
 
@@ -57,17 +70,33 @@ def _load_reads(args) -> dict[str, str]:
 
 
 def _align_by_chrom(ref: dict[str, str], seqs: dict[str, str], preset: str,
-                    device, want: list[str]) -> dict[str, list]:
+                    device, out_dir: str, tag: str,
+                    want: list[str] | None = None) -> dict[str, list]:
     """Align sequences to ref; returns the records of the chromosomes in
-    `want`, by chromosome."""
+    `want` (None: all), by chromosome.
+
+    In a process group the alignment is query-sharded: each rank aligns a
+    contiguous 1/P slice of the query set against the (identical) full
+    reference index, then per-chromosome record lists are exchanged over
+    the shared filesystem (<out_dir>/xch/<tag>_*) so that this rank
+    receives the chromosomes in `want` — the single-process record sets
+    and order, byte for byte (parallel.multiproc.exchange_by_chrom)."""
     from .aligner import Aligner
     from .config import AlignConfig
+    from .parallel import multiproc as mp
+    items = list(seqs.items())
+    lo, hi = mp.shard_interval(len(items))
+    chunk = dict(items[lo:hi])
     aligner = Aligner(ref, AlignConfig.preset(preset), device=device)
-    recs = aligner.to_bam_records(aligner.align(list(seqs.items())), seqs)
-    by_chrom: dict[str, list] = {c: [] for c in ref}
+    recs = aligner.to_bam_records(aligner.align(list(chunk.items())), chunk)
+    local: dict[str, list] = {c: [] for c in ref}
     for r in recs:
-        by_chrom[aligner.names[r.ref_id]].append(r)
-    return {c: by_chrom.get(c, []) for c in want}
+        local[aligner.names[r.ref_id]].append(r)
+    if mp.n_processes() > 1:
+        log.info("rank %d/%d aligned queries [%d:%d) of %d (%s)",
+                 mp.process_id(), mp.n_processes(), lo, hi, len(items), tag)
+    return mp.exchange_by_chrom(local, out_dir, tag,
+                                want=list(ref) if want is None else want)
 
 
 def _read_preset(dtype: str) -> str:
@@ -75,14 +104,15 @@ def _read_preset(dtype: str) -> str:
 
 
 def _reads_by_chrom(args, ref, device, chroms):
-    """The --fastq/--bam reads aligned to ref, by chromosome of `chroms`;
-    None when neither is given."""
+    """The --fastq/--bam reads aligned to ref (query-sharded over the
+    ranks), by chromosome of `chroms`; None when neither is given."""
     if not (getattr(args, "fastq", None) or getattr(args, "bam", None)):
         return None
     read_seqs = _load_reads(args)
     with stage_timer("align-reads", log):
-        return _align_by_chrom(ref, read_seqs, _read_preset(args.dtype),
-                               device, chroms)
+        return _align_by_chrom(ref, read_seqs,
+                                       _read_preset(args.dtype), device,
+                                       args.out_dir, "reads", want=chroms)
 
 
 def _vcf_out(out_dir: str, name: str, ref: dict[str, str], records) -> str:
@@ -95,9 +125,35 @@ def _vcf_out(out_dir: str, name: str, ref: dict[str, str], records) -> str:
     return path
 
 
+def _vcf_out_sharded(out_dir: str, name: str, ref: dict[str, str],
+                     records) -> str:
+    """Multi-process VCF output: each rank writes its owned chromosomes'
+    records as a part file, rank 0 merges them in rank order — the
+    reference's per-chromosome concat (volcanosv-vc-large-indel.py:266-278
+    + Merge_VCF.py).  Single-process: plain _vcf_out."""
+    from .parallel import multiproc as mp
+    if mp.n_processes() == 1:
+        return _vcf_out(out_dir, name, ref, records)
+    parts_dir = os.path.join(out_dir, "parts")
+    os.makedirs(parts_dir, exist_ok=True)
+    _vcf_out(parts_dir, f"{name}.p{mp.process_id()}.vcf", ref, records)
+    mp.barrier(f"vcf:{name}")
+    path = os.path.join(out_dir, name)
+    if mp.is_rank0():
+        from .io.vcf import merge_vcfs
+        n = merge_vcfs([os.path.join(parts_dir, f"{name}.p{p}.vcf")
+                        for p in range(mp.n_processes())], path)
+        log.info("rank 0 merged %d records from %d parts → %s",
+                 n, mp.n_processes(), path)
+    mp.barrier(f"vcf-merged:{name}")
+    return path
+
+
 def _reads_sigs_cached(args, cfg, reads_by_chrom, chroms):
     """Per-chrom reads signatures with checkpoint reuse (the -rdsig dir
-    contract, volcanosv-vc-large-indel.py:18-19)."""
+    contract, volcanosv-vc-large-indel.py:18-19).  `chroms` are this
+    rank's chromosomes, so ranks never write each other's checkpoint
+    artifacts."""
     if reads_by_chrom is None:
         return None
     from .vc.reads_sig import extract_reads_signatures
@@ -114,26 +170,63 @@ def _reads_sigs_cached(args, cfg, reads_by_chrom, chroms):
     return sigs
 
 
-def host_median(values: np.ndarray) -> float:
-    """float32 median of the concatenated all-chromosome values — the
-    reference's WGS-global statistic on its single-process path
-    (parallel/wgs.py:88-111), bit for bit."""
-    s = np.sort(np.asarray(values, np.float32).reshape(-1))
-    n = len(s)
-    if n == 0:
-        return 0.0
-    return float((s[(n - 1) // 2] + s[n // 2]) / np.float32(2))
+def _own_chroms(ref: dict[str, str]) -> list[str]:
+    """This process's chromosome shard.  Single-process → all chromosomes;
+    in a process group each rank owns a round-robin share (the
+    multi-process replacement for '22 SLURM jobs', README.md:244-255)."""
+    from .parallel import multiproc as mp
+    from .parallel.mesh import host_chromosome_shard
+    chroms = list(ref)
+    if mp.n_processes() > 1:
+        chroms = host_chromosome_shard(chroms)
+        log.info("rank %d/%d owns chromosomes: %s", mp.process_id(),
+                 mp.n_processes(), chroms)
+    return chroms
+
+
+def _pipeline_mesh(device) -> None:
+    """Install the (genome, data) mesh of this process's cards as the
+    ACTIVE mesh for the command (single process, `device` a card, more
+    than one card; else no mesh): the aligner's DP window batches are then
+    split over its cards (ops.banded_align._sharded_cigars_dispatch) and
+    the WGS median runs as its collective.  Called at the top of each
+    command that aligns; `_mesh_scoped` clears it when the command ends."""
+    import torch
+
+    from .parallel import make_mesh
+    from .parallel import multiproc as mp
+    from .parallel.mesh import set_active_mesh
+    if mp.n_processes() == 1:
+        set_active_mesh(make_mesh(device=device) if (
+            device.type == "cuda" and torch.cuda.device_count() > 1)
+            else None)
+
+
+def _mesh_scoped(cmd):
+    """cmd(args) with the active mesh cleared when it returns or raises, so
+    that no later command of the process inherits it."""
+    @functools.wraps(cmd)
+    def run(args):
+        from .parallel.mesh import set_active_mesh
+        try:
+            return cmd(args)
+        finally:
+            set_active_mesh(None)
+    return run
 
 
 def _call_large_indels(ref, by_chrom, contigs, cfg, reads_by_chrom,
                        reads_sigs, chroms, device, include_bed=None,
                        read_hp=None):
-    """All-chromosome large-indel calling with the WGS-global coverage
-    median over every chromosome's rel_cov values (the reference's
+    """Large-indel calling of `chroms` with the WGS-global coverage median
+    over every rank's chromosomes' rel_cov values (the reference's
     per-run median after the all-chromosome concat,
     volcanosv-vc-large-indel.py:266-278 + filter_vcf_by_sig_cov_insdel.py
-    :38-55).  read_hp (chrom → read → (hap, block)) drives the
-    phase-aware GT downgrade."""
+    :38-55; parallel.wgs.wgs_global_median).  read_hp (chrom → read →
+    (hap, block)) drives the phase-aware GT downgrade."""
+    from .parallel.mesh import active_mesh
+    from .parallel.multiproc import gather_across_processes
+    from .parallel.wgs import wgs_global_median
     from .vc.gt_correction import rel_coverage
     from .vc.large_indel import call_chromosome_raw, finalize_chromosome
     raw: dict[str, tuple] = {}
@@ -147,19 +240,26 @@ def _call_large_indels(ref, by_chrom, contigs, cfg, reads_by_chrom,
     medians: dict[str, float] = {}
     have_sigs = [c for c in chroms if raw[c][1] is not None]
     if reads_by_chrom is not None:
+        # every rank MUST take this branch symmetrically (the gather is a
+        # collective): reads_by_chrom is None on all ranks or none, and
+        # apply_del/apply_ins come from the shared config
+        mesh = active_mesh()
         for svtype, apply_it in (("DEL", cfg.cov_filter.apply_del),
                                  ("INS", cfg.cov_filter.apply_ins)):
             if not apply_it:
                 continue
             rels = [rel_coverage(raw[c][0], raw[c][1], cfg.cov_filter,
                                  svtype)[1] for c in have_sigs]
-            glob = np.concatenate(rels).astype(np.float32) if rels \
-                else np.zeros(0, np.float32)
-            if len(glob) < cfg.cov_filter.min_calls:
-                continue
-            medians[svtype] = host_median(glob)
-            log.info("WGS-global %s rel_cov median: %.4f over %d calls",
-                     svtype, medians[svtype], len(glob))
+            local = np.concatenate(rels) if rels else np.zeros(0, np.float32)
+            with stage_timer("wgs-global-median", log):
+                # the union of every rank's owned-chromosome vectors
+                glob = gather_across_processes(local)
+                if len(glob) < cfg.cov_filter.min_calls:
+                    continue
+                medians[svtype] = wgs_global_median([glob], mesh)
+            log.info("WGS-global %s rel_cov median: %.4f over %d calls (%s)",
+                     svtype, medians[svtype], len(glob),
+                     "mesh collective" if mesh is not None else "host")
     records = []
     for chrom in chroms:
         recs, gt_sigs = raw[chrom]
@@ -209,9 +309,18 @@ def _run_asm(ref, read_seqs, args, device, reads_by_chrom=None):
     Per-chromosome results checkpoint to <out_dir>/checkpoints/ and are
     reused under --resume (the reference's log.txt skip-list contract,
     General_Assembly_Workflow.py:530-547).  Writes <out_dir>/phased.bam
-    with HP/PS tags when any chromosome is assembled."""
+    with HP/PS tags when any chromosome is assembled.
+
+    Multi-process: each rank assembles its owned chromosome shard (the
+    reads' alignment is query-sharded too) and writes phased_p<rank>.bam;
+    the per-chromosome checkpoint artifacts in the shared out_dir ARE the
+    exchange medium — after the barrier every rank loads all chromosomes'
+    contigs/SNPs, so later stages see the identical full assembly on every
+    rank."""
     from .io.bam import BamWriter
     from .ops.pack import encode_seq
+    from .parallel import multiproc as mp
+    from .parallel.mesh import host_chromosome_shard
     from .phasing import snp_vcf_records
     from .pipeline.asm import assemble_chromosome
     cfg = PipelineConfig.for_dtype(args.dtype)
@@ -221,24 +330,29 @@ def _run_asm(ref, read_seqs, args, device, reads_by_chrom=None):
         from .io.bed import read_bed
         bed = read_bed(args.hybrid_bed)
     chroms = [args.chrom] if getattr(args, "chrom", None) else list(ref)
-    todo = [c for c in chroms
+    multi = mp.n_processes() > 1
+    own = host_chromosome_shard(chroms) if multi else chroms
+    todo = [c for c in own
             if not (ckpt.has(f"asm_{c}.fa") and ckpt.has(f"snps_{c}.vcf"))]
     by_chrom, phased_writer = {}, None
     if todo:
         if reads_by_chrom is not None:
-            by_chrom = {c: reads_by_chrom.get(c, []) for c in chroms}
+            by_chrom = {c: reads_by_chrom.get(c, []) for c in own}
         else:
             with stage_timer("align-reads", log):
-                by_chrom = _align_by_chrom(ref, read_seqs,
-                                           _read_preset(args.dtype), device,
-                                           chroms)
+                by_chrom = _align_by_chrom(
+                    ref, read_seqs, _read_preset(args.dtype), device,
+                    args.out_dir, "reads_asm", want=own)
         # phased BAM with HP/PS tags — longshot's '-O phased.bam' artifact
-        # (volcanosv-asm.py:75-80; tag semantics prepare_info_v1.py:42-63)
+        # (volcanosv-asm.py:75-80; tag semantics prepare_info_v1.py:42-63);
+        # per-rank part files under multi-process (owned chromosomes only)
         os.makedirs(args.out_dir, exist_ok=True)
-        phased_writer = BamWriter(os.path.join(args.out_dir, "phased.bam"),
-                                  list(ref), [len(s) for s in ref.values()])
+        suffix = f"_p{mp.process_id()}" if multi else ""
+        phased_writer = BamWriter(
+            os.path.join(args.out_dir, f"phased{suffix}.bam"),
+            list(ref), [len(s) for s in ref.values()])
     results: dict[str, tuple[dict, list]] = {}
-    for chrom in chroms:
+    for chrom in own:
         if chrom not in todo:
             log.info("resume: reusing checkpointed assembly for %s", chrom)
             results[chrom] = (ckpt.load_fasta(f"asm_{chrom}.fa"),
@@ -287,11 +401,19 @@ def _run_asm(ref, read_seqs, args, device, reads_by_chrom=None):
             phased_writer.write(r)
     if phased_writer is not None:
         phased_writer.close()
+    mp.barrier("asm-exchange")
     contigs: dict[str, str] = {}
     snp_records = []
     read_hp_by_chrom: dict[str, dict[str, tuple[int, int]]] = {}
     for chrom in chroms:
-        ctgs, snps = results[chrom]
+        if chrom in results:
+            ctgs, snps = results[chrom]
+        elif os.path.exists(ckpt.path(f"asm_{chrom}.fa")):
+            # another rank's shard — read its checkpoint artifacts
+            ctgs = ckpt.load_fasta(f"asm_{chrom}.fa")
+            snps = ckpt.load_vcf(f"snps_{chrom}.vcf")
+        else:
+            continue
         # read back from the checkpoint, fresh or resumed alike
         if os.path.exists(ckpt.path(f"read_hp_{chrom}.tsv")):
             read_hp_by_chrom[chrom] = ckpt.load_read_hp(
@@ -304,9 +426,22 @@ def _run_asm(ref, read_seqs, args, device, reads_by_chrom=None):
     return contigs, snp_records, read_hp_by_chrom
 
 
+def _align_reads_to_contigs(contigs: dict[str, str],
+                            read_seqs: dict[str, str], dtype: str, device):
+    """The reads aligned to the contigs: (records, contig names)."""
+    from .aligner import Aligner
+    from .config import AlignConfig
+    al = Aligner(contigs, AlignConfig.preset(_read_preset(dtype)),
+                 device=device)
+    recs = al.to_bam_records(al.align(list(read_seqs.items())), read_seqs)
+    return recs, al.names
+
+
+@_mesh_scoped
 def cmd_asm(args) -> int:
     from .io.fasta import read_fasta, write_fasta
     device = resolve_device(args.device)
+    _pipeline_mesh(device)
     ref = read_fasta(args.ref)
     read_seqs = _load_reads(args)
     if not read_seqs:
@@ -314,10 +449,62 @@ def cmd_asm(args) -> int:
         return 2
     contigs, snp_records, _read_hp = _run_asm(ref, read_seqs, args, device)
     _vcf_out(args.out_dir, "phased_snps.vcf", ref, snp_records)
+    if args.sd:
+        # SD loop needs the read partition; approximate groups from contig
+        # hap names by re-aligning reads to contigs (Evaluate_Assembly.py)
+        from .pipeline.sd import hap_of_contig, sd_recover
+        cfg = PipelineConfig.for_dtype(args.dtype)
+        with stage_timer("align-reads-to-contigs", log):
+            roc, names = _align_reads_to_contigs(contigs, read_seqs,
+                                                 args.dtype, device)
+        groups: dict[str, list[str]] = {}
+        for r in roc:
+            if r.is_unmapped or r.is_secondary or r.is_supplementary:
+                continue
+            h = hap_of_contig(names[r.ref_id])
+            seq = read_seqs.get(r.name)
+            if seq:
+                groups.setdefault(h, []).append(seq)
+        with stage_timer("sd-recover", log):
+            contigs, _qc = sd_recover(contigs, groups, roc, cfg,
+                                      device=device)
     os.makedirs(args.out_dir, exist_ok=True)
     out = os.path.join(args.out_dir, "final_contigs.fa")
     write_fasta(out, contigs)
     log.info("assembly: %d contigs → %s", len(contigs), out)
+    return 0
+
+
+@_mesh_scoped
+def cmd_qc(args) -> int:
+    """Assembly QC report: per-contig window states + collapsed list, as
+    <out_dir>/flagger_blocks.bed."""
+    from .io.fasta import read_fasta
+    from .qc import evaluate_assembly
+    from .qc.flagger import state_names
+    device = resolve_device(args.device)
+    _pipeline_mesh(device)
+    contigs = read_fasta(args.contig)
+    read_seqs = _load_reads(args)
+    if not read_seqs:
+        log.error("qc requires --fastq or --bam")
+        return 2
+    cfg = PipelineConfig.for_dtype(args.dtype)
+    with stage_timer("align-reads-to-contigs", log):
+        roc, names = _align_reads_to_contigs(contigs, read_seqs, args.dtype,
+                                             device)
+    with stage_timer("qc", log):
+        res = evaluate_assembly(contigs, roc, names, cfg.qc, device=device)
+    os.makedirs(args.out_dir, exist_ok=True)
+    out = os.path.join(args.out_dir, "flagger_blocks.bed")
+    names_q = state_names(cfg.qc.n_states)
+    with open(out, "w") as fh:
+        for c in res.states:
+            for st in range(len(names_q)):
+                for s, e in res.blocks(c, st):
+                    fh.write(f"{c}\t{s}\t{e}\t{names_q[st]}\n")
+    log.info("QC: λ=%.1f, collapsed contigs: %s → %s",
+             res.lam, res.collapsed or "none", out)
     return 0
 
 
@@ -392,37 +579,52 @@ def cmd_sim(args) -> int:
     return 0
 
 
+@_mesh_scoped
 def cmd_vc_large_indel(args) -> int:
     from .io.fasta import read_fasta
+    from .parallel.mesh import init_multihost
+    init_multihost()
     device = resolve_device(args.device)
+    _pipeline_mesh(device)
     ref = read_fasta(args.ref)
     contigs = read_fasta(args.contig)
     cfg = PipelineConfig.for_dtype(args.dtype, asm=args.asm)
     bed = _load_bed(args)
-    chroms = _restrict_chroms(args, list(ref), bed)
+    chroms = _restrict_chroms(args, _own_chroms(ref), bed)
     with stage_timer("align-contigs", log):
-        by_chrom = _align_by_chrom(ref, contigs, "asm5", device, chroms)
+        by_chrom = _align_by_chrom(ref, contigs, "asm5", device,
+                                           args.out_dir, "contigs_asm5",
+                                           want=chroms)
     reads_by_chrom = _reads_by_chrom(args, ref, device, chroms)
     reads_sigs = _reads_sigs_cached(args, cfg, reads_by_chrom, chroms)
     records = _call_large_indels(ref, by_chrom, contigs, cfg,
                                  reads_by_chrom, reads_sigs, chroms, device,
                                  include_bed=bed)
-    _vcf_out(args.out_dir, "volcanosv_large_indel.vcf", ref, records)
+    _vcf_out_sharded(args.out_dir, "volcanosv_large_indel.vcf", ref, records)
     return 0
 
 
+@_mesh_scoped
 def cmd_vc_small_indel(args) -> int:
     """Standalone small-indel subcommand: contigs aligned with `asm20`, each
-    chromosome called in turn (volcanosv-vc-small-indel.py)."""
+    chromosome called in turn (volcanosv-vc-small-indel.py).  In a process
+    group each rank calls its chromosome shard (query-sharded alignment)
+    and rank 0 merges (the reference's per-chromosome cluster story,
+    README.md:244-255)."""
     from .io.fasta import read_fasta
+    from .parallel.mesh import init_multihost
     from .vc.small_indel import call_small_indels
+    init_multihost()
     device = resolve_device(args.device)
+    _pipeline_mesh(device)
     ref = read_fasta(args.ref)
     contigs = read_fasta(args.contig)
     cfg = PipelineConfig.for_dtype(args.dtype)
-    chroms = _restrict_chroms(args, list(ref), _load_bed(args))
+    chroms = _restrict_chroms(args, _own_chroms(ref), _load_bed(args))
     with stage_timer("align-contigs", log):
-        by_chrom = _align_by_chrom(ref, contigs, "asm20", device, chroms)
+        by_chrom = _align_by_chrom(ref, contigs, "asm20", device,
+                                           args.out_dir, "contigs_asm20",
+                                           want=chroms)
     reads_by_chrom = _reads_by_chrom(args, ref, device, chroms)
     records = []
     for chrom in chroms:
@@ -430,7 +632,7 @@ def cmd_vc_small_indel(args) -> int:
             records += call_small_indels(
                 chrom, by_chrom.get(chrom, []), ref[chrom], cfg,
                 reads_records=(reads_by_chrom or {}).get(chrom))
-    _vcf_out(args.out_dir, "volcanosv_small_indel.vcf", ref, records)
+    _vcf_out_sharded(args.out_dir, "volcanosv_small_indel.vcf", ref, records)
     return 0
 
 
@@ -445,7 +647,9 @@ def _harvest_ins_records(args, ref, contigs, cfg, chroms, device):
     if args.large_vcf:
         _h, recs = read_vcf(args.large_vcf)
         return [r for r in recs if r.svtype == "INS" and r.chrom in chroms]
-    by_chrom = _align_by_chrom(ref, contigs, "asm5", device, chroms)
+    by_chrom = _align_by_chrom(ref, contigs, "asm5", device,
+                                       args.out_dir, "contigs_asm5",
+                                       want=chroms)
     out = []
     for chrom in chroms:
         out += [r for r in call_chromosome(
@@ -454,43 +658,57 @@ def _harvest_ins_records(args, ref, contigs, cfg, chroms, device):
     return out
 
 
+@_mesh_scoped
 def cmd_vc_complex_sv(args) -> int:
     """Standalone complex-SV subcommand: contigs aligned with `asm10`, the INS
     calls of the large-indel caller (or --large_vcf) for DUP recovery, and
     the WGS-global pairing over every chromosome
-    (volcanosv-vc-complex-sv.py)."""
+    (volcanosv-vc-complex-sv.py).  In a process group the alignment and
+    the INS harvest run on each rank's shard, the INS records are
+    exchanged, the (global, cross-chromosome) pairing runs identically on
+    every rank, and rank 0 writes the VCF."""
     from .io.fasta import read_fasta
+    from .parallel import multiproc as mp
+    from .parallel.mesh import init_multihost
     from .vc.complex_sv import call_complex_svs
+    init_multihost()
     device = resolve_device(args.device)
+    _pipeline_mesh(device)
     ref = read_fasta(args.ref)
     contigs = read_fasta(args.contig)
     cfg = PipelineConfig.for_dtype(args.dtype)
     chroms = _restrict_chroms(args, list(ref), _load_bed(args))
+    own = [c for c in _own_chroms(ref) if c in chroms]
+    # complex pairing is WGS-global (cross-chrom BND mates): every rank
+    # needs all chromosomes' contig alignments
     with stage_timer("align-contigs", log):
-        by_chrom = _align_by_chrom(ref, contigs, "asm10", device, chroms)
+        by_chrom = _align_by_chrom(ref, contigs, "asm10", device,
+                                           args.out_dir, "contigs_asm10",
+                                           want=chroms)
     reads_by_chrom = _reads_by_chrom(args, ref, device, chroms)
-    ins_records = _harvest_ins_records(args, ref, contigs, cfg, chroms,
-                                       device)
+    ins_own = _harvest_ins_records(args, ref, contigs, cfg, own, device)
+    ins_by_chrom: dict[str, list] = {c: [] for c in ref}
+    for r in ins_own:
+        ins_by_chrom[r.chrom].append(r)
+    ins_by_chrom = mp.exchange_by_chrom(ins_by_chrom, args.out_dir,
+                                        "cx_ins_recs", want=list(ref))
+    ins_records = [r for c in ref for r in ins_by_chrom.get(c, [])]
     ins_records.sort(key=lambda r: (r.chrom, r.pos, r.id))
     with stage_timer("complex-sv", log):
         records = call_complex_svs(by_chrom, ref, cfg,
                                    ins_records=ins_records,
                                    reads_by_chrom=reads_by_chrom,
                                    device=device)
-    _vcf_out(args.out_dir, "volcanosv_complex_sv.vcf", ref, records)
+    if mp.is_rank0():
+        _vcf_out(args.out_dir, "volcanosv_complex_sv.vcf", ref, records)
+    mp.barrier("cx-final")
     return 0
 
 
 def cmd_eval(args) -> int:
     """Truvari-equivalent benchmark (README.md:493-498 protocol)."""
-    import json
-    from .eval import EvalParams, evaluate_files
-    res = evaluate_files(args.base, args.comp, EvalParams(
-        refdist=args.refdist, pctsize=args.pctsize, pctsim=args.pctsim,
-        pctovl=args.pctovl, minsize=args.minsize),
-        device=resolve_device(args.device))
-    print(json.dumps(res.summary()))
-    return 0
+    from .eval import run
+    return run(args)
 
 
 def cmd_merge_vcf(args) -> int:
@@ -500,21 +718,32 @@ def cmd_merge_vcf(args) -> int:
     return 0
 
 
+@_mesh_scoped
 def cmd_run(args) -> int:
-    """Full pipeline: asm + all three vc paths + merge (one command), on
-    the reference's single-process path.
+    """Full pipeline: asm + all three vc paths + merge (one command).
 
     One read-alignment pass serves the assembly and every caller.  The
     large-indel records are ordered by (chromosome rank, pos, id) before
     they drive the DUP recovery; an INS the recovery reclassified leaves
     the large-indel VCF (it is reported once, as <DUP>); the merged VCF
     takes the large-indel, small-indel and complex-SV records in that
-    order."""
+    order.
+
+    In a process group the assembly and the per-chromosome vc stages run
+    on each rank's chromosome shard with query-sharded alignment; the
+    finalized large-indel records are exchanged so the (WGS-only,
+    svim-asm-style) complex-SV stage sees the global INS set; that stage
+    runs once, on rank 0, and its records and consumed INS ids are
+    broadcast; rank 0 writes the complex VCF and the final merge."""
     from .io.fasta import read_fasta, write_fasta
     from .io.vcf import merge_vcfs
+    from .parallel import multiproc as mp
+    from .parallel.mesh import init_multihost
     from .vc.complex_sv import call_complex_svs
     from .vc.small_indel import call_small_indels
+    init_multihost()
     device = resolve_device(args.device)
+    _pipeline_mesh(device)
     ref = read_fasta(args.ref)
     read_seqs = _load_reads(args)
     if not read_seqs:
@@ -522,55 +751,89 @@ def cmd_run(args) -> int:
         return 2
     cfg = PipelineConfig.for_dtype(args.dtype)
     os.makedirs(args.out_dir, exist_ok=True)
-    chroms = list(ref)
+    multi = mp.n_processes() > 1
+    own = _own_chroms(ref)
+
+    # ONE read-alignment pass serves assembly AND every vc stage (the
+    # complex-SV WGS stage needs all chromosomes, so exchange want=all)
     with stage_timer("align-reads", log):
-        reads_by_chrom = _align_by_chrom(ref, read_seqs,
-                                         _read_preset(args.dtype), device,
-                                         chroms)
+        reads_by_chrom = _align_by_chrom(
+            ref, read_seqs, _read_preset(args.dtype), device, args.out_dir,
+            "reads_run")
     contigs, snp_records, read_hp_by_chrom = _run_asm(
         ref, read_seqs, args, device, reads_by_chrom=reads_by_chrom)
-    write_fasta(os.path.join(args.out_dir, "final_contigs.fa"), contigs)
-    _vcf_out(args.out_dir, "phased_snps.vcf", ref, snp_records)
+    if mp.is_rank0():
+        write_fasta(os.path.join(args.out_dir, "final_contigs.fa"), contigs)
+        _vcf_out(args.out_dir, "phased_snps.vcf", ref, snp_records)
     log.info("assembly: %d contigs", len(contigs))
 
     with stage_timer("align-contigs", log):
-        li_by_chrom = _align_by_chrom(ref, contigs, "asm5", device, chroms)
-    reads_sigs = _reads_sigs_cached(args, cfg, reads_by_chrom, chroms)
-    large = _call_large_indels(ref, li_by_chrom, contigs, cfg,
-                               reads_by_chrom, reads_sigs, chroms, device,
-                               read_hp=read_hp_by_chrom)
+        li_by_chrom = _align_by_chrom(ref, contigs, "asm5", device,
+                                              args.out_dir, "ctg_asm5")
+    reads_sigs = _reads_sigs_cached(args, cfg, reads_by_chrom, own)
+    large_own = _call_large_indels(ref, li_by_chrom, contigs, cfg,
+                                   reads_by_chrom, reads_sigs, own, device,
+                                   read_hp=read_hp_by_chrom)
+    # the global finalized record set on every rank (drives the DUP
+    # recovery and the consumed-INS filter identically everywhere)
+    large_by_chrom: dict[str, list] = {c: [] for c in ref}
+    for r in large_own:
+        large_by_chrom[r.chrom].append(r)
+    large_by_chrom = mp.exchange_by_chrom(large_by_chrom, args.out_dir,
+                                          "large_recs", want=list(ref))
+    large = [r for c in ref for r in large_by_chrom.get(c, [])]
     rank = {c: i for i, c in enumerate(ref)}
     large.sort(key=lambda r: (rank[r.chrom], r.pos, r.id))
     ins_records = [r for r in large if r.svtype == "INS"]
 
     with stage_timer("align-contigs", log):
-        si_by_chrom = _align_by_chrom(ref, contigs, "asm20", device, chroms)
+        si_by_chrom = _align_by_chrom(ref, contigs, "asm20", device,
+                                              args.out_dir, "ctg_asm20",
+                                              want=own)
     small = []
-    for chrom in chroms:
+    for chrom in own:
         with stage_timer(f"small-indel[{chrom}]", log):
             small += call_small_indels(
                 chrom, si_by_chrom.get(chrom, []), ref[chrom], cfg,
                 reads_records=reads_by_chrom.get(chrom),
                 read_hp=read_hp_by_chrom.get(chrom))
-    p_small = _vcf_out(args.out_dir, "volcanosv_small_indel.vcf", ref, small)
+    p_small = _vcf_out_sharded(args.out_dir, "volcanosv_small_indel.vcf",
+                               ref, small)
 
     with stage_timer("align-contigs", log):
-        cx_by_chrom = _align_by_chrom(ref, contigs, "asm10", device, chroms)
+        cx_by_chrom = _align_by_chrom(
+            ref, contigs, "asm10", device, args.out_dir, "ctg_asm10",
+            want=None if mp.is_rank0() else [])
     consumed: set = set()
-    with stage_timer("complex-sv", log):
-        complex_recs = call_complex_svs(cx_by_chrom, ref, cfg,
-                                        ins_records=ins_records,
-                                        reads_by_chrom=reads_by_chrom,
-                                        consumed_ins=consumed, device=device)
-    p_cx = _vcf_out(args.out_dir, "volcanosv_complex_sv.vcf", ref,
-                    complex_recs)
+    # the WGS-global complex stage (cross-chrom BND pairing + DUP-recovery
+    # realignment) runs ONCE, on rank 0; (records, consumed INS ids) are
+    # broadcast so every rank filters its large-indel share identically
+    complex_recs = None
+    if mp.is_rank0():
+        with stage_timer("complex-sv", log):
+            complex_recs = call_complex_svs(cx_by_chrom, ref, cfg,
+                                            ins_records=ins_records,
+                                            reads_by_chrom=reads_by_chrom,
+                                            consumed_ins=consumed,
+                                            device=device)
+    complex_recs, consumed = mp.broadcast_from_rank0(
+        (complex_recs, consumed) if mp.is_rank0() else None,
+        args.out_dir, "complex")
+    p_cx = os.path.join(args.out_dir, "volcanosv_complex_sv.vcf")
+    if mp.is_rank0():
+        _vcf_out(args.out_dir, "volcanosv_complex_sv.vcf", ref, complex_recs)
     # an INS the DUP recovery reclassified is reported once, as <DUP>
     # (align_ins2ref.py role)
     large = [r for r in large if r.id not in consumed]
-    p_large = _vcf_out(args.out_dir, "volcanosv_large_indel.vcf", ref, large)
+    # each rank writes its owned chromosomes' share of the global set
+    large_mine = [r for r in large if not multi or r.chrom in own]
+    p_large = _vcf_out_sharded(args.out_dir, "volcanosv_large_indel.vcf",
+                               ref, large_mine)
     out = os.path.join(args.out_dir, "volcanosv_variants.vcf")
-    n = merge_vcfs([p_large, p_small, p_cx], out)
-    log.info("FINAL: %d variants → %s", n, out)
+    if mp.is_rank0():
+        n = merge_vcfs([p_large, p_small, p_cx], out)
+        log.info("FINAL: %d variants → %s", n, out)
+    mp.barrier("run-final")
     return 0
 
 
@@ -610,6 +873,9 @@ def _add_common(p, contig: bool) -> None:
     p.add_argument("--profile", action="store_true",
                    help="write <out_dir>/stage_times.json + print the "
                         "per-stage wall-clock table")
+    p.add_argument("--profile_trace", metavar="DIR",
+                   help="capture a torch.profiler trace (Chrome/Perfetto "
+                        "JSON) of the whole command into DIR")
     _add_device(p)
 
 
@@ -654,6 +920,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("asm", help="phase + partition + assemble")
     _add_common(p, contig=False)
     p.add_argument("--chrom", help="restrict to one chromosome")
+    p.add_argument("--sd", action="store_true",
+                   help="QC + re-assemble collapsed blocks (SD recovery)")
     p.add_argument("--hybrid_bed",
                    help="BED of regions assembled with the in-BED profile "
                         "(hybrid mode, volcanosv-asm_hybrid.py parity)")
@@ -661,6 +929,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="also write fastq_by_hap/<hap>.fastq per haplotype "
                         "(write_fastq_asm_general.py parity)")
     p.set_defaults(fn=cmd_asm)
+
+    p = sub.add_parser("qc", help="coverage-HMM assembly QC (Flagger equiv)")
+    _add_common(p, contig=True)
+    p.set_defaults(fn=cmd_qc)
 
     p = sub.add_parser("vc-large-indel", help="large-indel calling (≥30bp)")
     _add_common(p, contig=True)
@@ -679,14 +951,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_vc_complex_sv)
 
     p = sub.add_parser("eval", help="truvari-equivalent SV benchmark")
-    p.add_argument("--base", required=True, help="truth VCF")
-    p.add_argument("--comp", required=True, help="call VCF")
-    p.add_argument("-r", "--refdist", type=int, default=500)
-    p.add_argument("-P", "--pctsize", type=float, default=0.5)
-    p.add_argument("-p", "--pctsim", type=float, default=0.5)
-    p.add_argument("-O", "--pctovl", type=float, default=0.01)
-    p.add_argument("-S", "--minsize", type=int, default=30)
-    _add_device(p)
+    from .eval import add_arguments
+    add_arguments(p)
     p.set_defaults(fn=cmd_eval)
 
     p = sub.add_parser("merge-vcf", help="merge VCFs (Merge_VCF.py)")
@@ -700,9 +966,26 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _profiled(fn, args, trace_dir: str) -> int:
+    """fn(args) under torch.profiler (CPU, plus CUDA where a card is
+    present); the trace goes to <trace_dir>/trace.json."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    with profile(activities=acts) as prof:
+        rc = fn(args)
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    log.info("profiler trace → %s", path)
+    return rc
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
-    rc = args.fn(args)
+    trace_dir = getattr(args, "profile_trace", None)
+    rc = _profiled(args.fn, args, trace_dir) if trace_dir else args.fn(args)
     if getattr(args, "profile", False) and getattr(args, "out_dir", None):
         import json
         from .utils.logging import STAGE_TIMES, stage_report

@@ -271,3 +271,43 @@ def evaluate_files(base_vcf: str, comp_vcf: str,
     _h1, base = read_vcf(base_vcf)
     _h2, comp = read_vcf(comp_vcf)
     return evaluate(base, comp, params, device=device)
+
+
+def add_arguments(ap) -> None:
+    """The flags of `eval` (this module's entry and the CLI subcommand)."""
+    ap.add_argument("--base", required=True, help="truth VCF")
+    ap.add_argument("--comp", required=True, help="call VCF")
+    ap.add_argument("-r", "--refdist", type=int, default=500)
+    ap.add_argument("-P", "--pctsize", type=float, default=0.5)
+    ap.add_argument("-p", "--pctsim", type=float, default=0.5)
+    ap.add_argument("-O", "--pctovl", type=float, default=0.01)
+    ap.add_argument("-S", "--minsize", type=int, default=30)
+    ap.add_argument("--device", default=DEFAULT_DEVICE,
+                    help="torch device of the ALT-sequence edit distances: "
+                         "cuda (default; raises when absent) or cpu")
+
+
+def run(args) -> int:
+    """Evaluate args.comp against args.base; the summary JSON on stdout."""
+    import json
+    res = evaluate_files(args.base, args.comp, EvalParams(
+        refdist=args.refdist, pctsize=args.pctsize, pctsim=args.pctsim,
+        pctovl=args.pctovl, minsize=args.minsize),
+        device=resolve_device(args.device))
+    print(json.dumps(res.summary()))
+    return 0
+
+
+def main(argv=None) -> int:
+    """python -m volcanosv_tpu_torch.eval --base truth.vcf --comp calls.vcf
+    [-r 500] [-P 0.5] [-p 0.5] [-O 0.01] [-S 30] [--device cuda]"""
+    import argparse
+    ap = argparse.ArgumentParser(
+        description="truvari-equivalent SV benchmark")
+    add_arguments(ap)
+    return run(ap.parse_args(argv))
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(main())

@@ -288,16 +288,19 @@ def banded_dp(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     row0 = torch.empty((M, B), dtype=torch.int32, device=dev) \
         if row0_scores else None
     dual = scores.dual
-    rc = cuda_build.lib("banded_dp").banded_dp_launch_branch(
-        DP_BRANCHES[branch], q.data_ptr(), t.data_ptr(), qlen.data_ptr(),
-        tlen.data_ptr(), B, M, t.shape[1], W, d_lo, scores.match,
-        scores.mismatch, scores.gap_open, scores.gap_extend, int(dual),
-        scores.gap_open2 if dual else 0, scores.gap_extend2 if dual else 0,
-        int(with_traceback), int(row0_scores), int(free_t_end),
-        int(free_t_start), score.data_ptr(), end_j.data_ptr(),
-        tb.data_ptr() if tb is not None else None,
-        row0.data_ptr() if row0 is not None else None,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):        # the launch goes to q's card
+        rc = cuda_build.lib("banded_dp").banded_dp_launch_branch(
+            DP_BRANCHES[branch], q.data_ptr(), t.data_ptr(),
+            qlen.data_ptr(), tlen.data_ptr(), B, M, t.shape[1], W, d_lo,
+            scores.match, scores.mismatch, scores.gap_open,
+            scores.gap_extend, int(dual),
+            scores.gap_open2 if dual else 0,
+            scores.gap_extend2 if dual else 0, int(with_traceback),
+            int(row0_scores), int(free_t_end), int(free_t_start),
+            score.data_ptr(), end_j.data_ptr(),
+            tb.data_ptr() if tb is not None else None,
+            row0.data_ptr() if row0 is not None else None,
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "banded_dp launch")
     banded_dp.launches += 1
     taken = banded_dp_branch(W) if branch == "auto" else branch
@@ -411,10 +414,12 @@ def tb_walk(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
     packed = torch.empty((n_steps // 4, B), dtype=torch.uint8,
                          device=tb.device)
     done = torch.empty(B, dtype=torch.bool, device=tb.device)
-    rc = cuda_build.lib("tb_walk").tb_walk_launch_branch(
-        WALK_BRANCHES[taken], tb.data_ptr(), qlen.data_ptr(),
-        tlen.data_ptr(), B, M, W, d_lo, n_steps, packed.data_ptr(),
-        done.data_ptr(), torch.cuda.current_stream(tb.device).cuda_stream)
+    with torch.cuda.device(tb.device):  # the launch goes to tb's card
+        rc = cuda_build.lib("tb_walk").tb_walk_launch_branch(
+            WALK_BRANCHES[taken], tb.data_ptr(), qlen.data_ptr(),
+            tlen.data_ptr(), B, M, W, d_lo, n_steps, packed.data_ptr(),
+            done.data_ptr(),
+            torch.cuda.current_stream(tb.device).cuda_stream)
     cuda_build.check(rc, "tb_walk launch")
     tb_walk.launches += 1
     tb_walk.shapes.append((taken, B, M, W))
@@ -505,6 +510,64 @@ def walk_steps(M: int, W: int, qlen, tlen) -> tuple[int, int]:
     return min(full, -(-need // 256) * 256), full
 
 
+def _complete_fn(qlen, tlen):
+    """Test of a decoded (steps, B) op stream: it must consume exactly
+    qlen query and tlen target bases per row — catches walks cut by the
+    bucketed step bound."""
+    ql_np, tl_np = np.asarray(qlen), np.asarray(tlen)
+
+    def complete(ops):
+        cq = np.count_nonzero((ops == 0) | (ops == 1), axis=0)
+        ct = np.count_nonzero((ops == 0) | (ops == 2), axis=0)
+        return bool(np.all(cq == ql_np) and np.all(ct == tl_np))
+    return complete
+
+
+def _cigars_dispatch(devices, q, t, qlen, tlen, W: int, d_lo: int,
+                     scores: Scores):
+    """The batch split over `devices` in order: each device takes its 1/N
+    slice of the window batch, with one DP launch and one walk launch, at
+    the step bound of the whole batch.  Returns the finish() closure of
+    banded_align_cigars_dispatch, whose CIGARs come back joined in batch
+    order.  A walk the bucketed bound cut short (a rare gap-dense batch) is
+    walked again on each device's traceback at the full bound."""
+    B, M = q.shape
+    n_steps, full = walk_steps(M, W, qlen, tlen)
+    cut = [B * i // len(devices) for i in range(len(devices) + 1)]
+    parts, packed = [], []
+    for i, dev in enumerate(devices):
+        sl = slice(cut[i], cut[i + 1])
+        qd, td, qld, tld = _device_batch(q[sl], t[sl], qlen[sl], tlen[sl],
+                                         dev)
+        _s, _e, tb, _r = banded_dp(qd, td, qld, tld, W, d_lo, scores)
+        parts.append((tb, qld, tld))
+        packed.append(tb_walk(tb, qld, tld, d_lo, n_steps)[0])
+    complete = _complete_fn(qlen, tlen)
+
+    def fetch(streams):
+        return _unpack_ops(np.concatenate([p.cpu().numpy() for p in streams],
+                                          axis=1))
+
+    def finish():
+        ops = fetch(packed)
+        if not complete(ops) and n_steps < full:
+            ops = fetch([tb_walk(tb, qld, tld, d_lo, full)[0]
+                         for tb, qld, tld in parts])
+        if not complete(ops):
+            raise AssertionError(
+                "traceback walk unfinished at the full step bound")
+        return _rle_columns(ops, B)
+
+    return finish
+
+
+def _sharded_cigars_dispatch(mesh, q, t, qlen, tlen, W: int, d_lo: int,
+                             scores: Scores):
+    """The batch split over the mesh's devices (the pipeline's
+    data-parallel axis), one DP and one walk launch a device."""
+    return _cigars_dispatch(mesh.flat(), q, t, qlen, tlen, W, d_lo, scores)
+
+
 def banded_align_cigars_dispatch(q, t, qlen, tlen, W: int = 256,
                                  d_lo: int = -64, scores: Scores = Scores(),
                                  device=DEFAULT_DEVICE):
@@ -512,37 +575,21 @@ def banded_align_cigars_dispatch(q, t, qlen, tlen, W: int = 256,
     and return a finish() closure that fetches the packed op stream (the
     one device→host copy) and decodes it to one CIGAR [(op, len)] per row
     (op 0=M, 1=I, 2=D).  Callers dispatch several batches, then finish
-    them in order, so the device works while the host decodes."""
+    them in order, so the device works while the host decodes.
+
+    With an active pipeline mesh (parallel.mesh.set_active_mesh) of more
+    than one device of `device`'s type whose count divides the batch, the
+    batch is split over the mesh's devices instead of running on `device`
+    alone; a call for another device type never reaches the mesh."""
+    from ..parallel.mesh import active_mesh
     device = resolve_device(device)
-    B, M = q.shape
-    qd, td, qld, tld = _device_batch(q, t, qlen, tlen, device)
-    _s, _e, tb, _r = banded_dp(qd, td, qld, tld, W, d_lo, scores)
-    n_steps, full = walk_steps(M, W, qlen, tlen)
-    packed, _done = tb_walk(tb, qld, tld, d_lo, n_steps)
-    ql_np = np.asarray(qlen)
-    tl_np = np.asarray(tlen)
-
-    def _complete(ops):
-        """The decoded stream must consume exactly qlen query and tlen
-        target bases per row — catches walks cut by the bucketed bound."""
-        cq = np.count_nonzero((ops == 0) | (ops == 1), axis=0)
-        ct = np.count_nonzero((ops == 0) | (ops == 2), axis=0)
-        return bool(np.all(cq == ql_np) and np.all(ct == tl_np))
-
-    def finish():
-        ops = _unpack_ops(packed.cpu().numpy())
-        if not _complete(ops):
-            if n_steps >= full:
-                raise AssertionError(
-                    "traceback walk unfinished at the full step bound")
-            p2, _ = tb_walk(tb, qld, tld, d_lo, full)
-            ops = _unpack_ops(p2.cpu().numpy())
-            if not _complete(ops):
-                raise AssertionError(
-                    "traceback walk unfinished at the full step bound")
-        return _rle_columns(ops, B)
-
-    return finish
+    mesh = active_mesh()
+    if (mesh is not None and mesh.size > 1
+            and mesh.flat()[0].type == device.type
+            and q.shape[0] % mesh.size == 0):
+        return _sharded_cigars_dispatch(mesh, q, t, qlen, tlen, W, d_lo,
+                                        scores)
+    return _cigars_dispatch([device], q, t, qlen, tlen, W, d_lo, scores)
 
 
 def banded_align_cigars(q, t, qlen, tlen, W: int = 256, d_lo: int = -64,
@@ -551,6 +598,18 @@ def banded_align_cigars(q, t, qlen, tlen, W: int = 256, d_lo: int = -64,
     """Batched global banded alignment → exact CIGARs, one per row."""
     return banded_align_cigars_dispatch(q, t, qlen, tlen, W=W, d_lo=d_lo,
                                         scores=scores, device=device)()
+
+
+def banded_align_auto(q, t, qlen, tlen, W: int = 256, d_lo: int = -64,
+                      scores: Scores = Scores(), device=DEFAULT_DEVICE):
+    """The traceback DP of a batch on `device`.  Returns (score (B,),
+    tb_get: b -> (M, W) uint8 traceback of row b, end_j (B,)), as numpy;
+    rows beyond each alignment's qlen are unused."""
+    device = resolve_device(device)
+    s, e, tb, _r = banded_dp(*_device_batch(q, t, qlen, tlen, device), W,
+                             d_lo, scores)
+    tb_np = tb.cpu().numpy()
+    return s.cpu().numpy(), (lambda b: tb_np[b]), e.cpu().numpy()
 
 
 def banded_row0_auto(q, t, qlen, tlen, W: int = 128, d_lo: int = -64,
