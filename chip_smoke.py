@@ -67,13 +67,17 @@ Phase 4b `asm` with `--device cuda` and with `--device cpu` on the
          pipeline test's recipe (80 kb, 24x, 7 kb reads, seed 21), once
          with HiFi reads (`-d Hifi`, error 0.001) and once with CLR reads
          (`-d CLR`, substitutions 0.09 and indels 0.045, where every
-         candidate site is realigned through the pair-HMM Viterbi, which
-         must have been called on the card): final_contigs.fa,
+         candidate site is realigned through the pair-HMM Viterbi, whose
+         kernel must have launched on the card): final_contigs.fa,
          phased_snps.vcf, read_hp_chr1.tsv and phased.bam byte-identical
-         in each.  Then each torch-op device function of the path on
-         the card against the CPU, timed on both beside its bound: the
-         pair-HMM Viterbi (8192 pairs, R = 57, W = 41, error 0.002 and 0.1;
-         scores bit-equal), the MEC votes (8 restarts on phase 4's largest
+         in each.  Then the pair-HMM kernel (csrc/pairhmm.cu) against its
+         plain version on the card and on the CPU, fp32 scores bit-equal:
+         at the path's shape (8192 pairs, R = 57, W = 41, error 0.002 and
+         0.1; timed beside its bound) and at edge batches (1 and 37 pairs,
+         empty and full segments, all-N windows, W 9 and 200).  Then each
+         torch-op device function of the path on the card against the
+         CPU, timed on both beside its bound: the MEC votes (8 restarts on
+         phase 4's largest
          observation set), the k-mer hashes and count of one table-build
          chunk, the unique mask of four tables, and the distinct runs and
          4-way vote of one chunk of 64 reads (phase 4's own inputs; equal).
@@ -89,8 +93,10 @@ Phase 5  `run --device cuda` (reads -> asm -> the large-indel, small-indel
          translocation as a 1|1 reciprocal BND pair.  Stage times, the DP
          launches by shape, and those made inside the complex-SV stage
          (counted around call_complex_svs), which must include the
-         haplotype pairing's edit distances at W = 128.  With --profile
-         the run is traced too.
+         haplotype pairing's edit distances at W = 128, and the pair-HMM
+         kernel's launches (76 at the golden recipe).  The run is traced
+         on the card (torch.profiler) for the device's busy time; with
+         --profile the host's ops too.
 Phase 5b `run` with `--device cuda` and with `--device cpu` on
          tests/test_torch_run.py's recipe (2 x 50 kb, an INV, a DUP, a
          translocation and small indels, 20x): the merged VCF, the three
@@ -102,9 +108,15 @@ Phase 6  QC and SD recovery on the card, each with `--device cuda` and
          chromosome scale (the two haplotypes of a 250 Mb chromosome at
          window 1000 in contigs of 120 kb - 5 Mb, 500,095 windows, a
          padded (190, 4970, 4) batch): fit_coverage_hmm (the same
-         iterations, means and tau within rtol 1e-4), Viterbi labels
-         equal, the card's posteriors no further from a float64
-         forward-backward than twice the CPU's, each timed beside its bound;
+         iterations, means and tau within rtol 1e-4), the Viterbi and
+         posteriors kernels (csrc/coverage_hmm.cu) against their plain
+         versions on the card and on the CPU: labels equal, the kernel's
+         posteriors no further from a float64 forward-backward than twice
+         the CPU's, each timed beside its bound; both kernels again on
+         tie-rich ragged batches (S 3-5, T 1, 2 and 300, an all-padded
+         row, two states of one mean) and at qc's launch shape (labels
+         equal, posteriors within 1e-5 or twice the CPU's distance); both
+         must have launched during `qc`;
          `sd_recover` on tests/test_sd_recovery.py's recipe (equal
          contigs, a re-assembled hap swapped in); `asm --sd` on phase 4b's
          HiFi case (final_contigs.fa and phased_snps.vcf byte-identical).
@@ -125,7 +137,9 @@ output are the phases' summary (launches by shape, stage times, eval), the
 card's `nvidia-smi` name and power limit, one JSON object with the kernels'
 launches, errors, times and bounds (each path's entry is checked and
 timed at the shape that path launched most: phase 1's row there, or a
-check made at that shape after the paths ran), and the
+check made at that shape after the paths ran; `pairhmm_viterbi`'s
+launches are the golden `run`'s, `coverage_viterbi`'s and
+`coverage_posteriors`' those of `qc` and `asm --sd`), and the
 `{"ok": true, ...}` line.
 """
 from __future__ import annotations
@@ -184,6 +198,28 @@ WALK_OPS_PER_STEP = 8
 EXPECTED_LAUNCHES = {"banded_dp": 17, "tb_walk": 15}
 
 
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port by its kernels-line name."""
+    from volcanosv_tpu_torch.ops import banded_align as ba
+    from volcanosv_tpu_torch.phasing import realign
+    from volcanosv_tpu_torch.qc import flagger
+    return dict(banded_dp=ba.banded_dp, tb_walk=ba.tb_walk,
+                pairhmm_viterbi=realign._viterbi_batch,
+                coverage_viterbi=flagger.coverage_viterbi,
+                coverage_posteriors=flagger.coverage_posteriors)
+
+
+def _reset_counts() -> None:
+    """Every wrapper's launch count to 0 and its shapes emptied."""
+    for fn in _wrappers().values():
+        fn.launches = 0
+        fn.shapes = []
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
 def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
@@ -225,7 +261,7 @@ def _smem_latency() -> dict:
     out = torch.zeros(3, dtype=torch.int64, device="cuda")
     cuda_build.check(cuda_build.lib("tb_walk").smem_chase(
         n, out.data_ptr(), torch.cuda.current_stream().cuda_stream),
-        "smem_chase")
+        "smem_chase", "tb_walk")
     cycles, ns, _ = out.tolist()
     return dict(cycles=cycles / n, ns=ns / n)
 
@@ -650,18 +686,22 @@ def phase2_slice(seed: int, profile: bool):
                           tb_walk_shapes=walk_shapes, profile=profile_info)
 
 
+def _shape_counts(shapes, keys) -> list[dict]:
+    """Launch shapes (tuples named by `keys`), with their count, the most
+    launched first."""
+    from collections import Counter
+    return [dict(zip(keys, sh), count=n)
+            for sh, n in Counter(map(tuple, shapes)).most_common()]
+
+
 def _dp_shapes(shapes) -> list[dict]:
     """banded_dp launches by (mode, design, B, M, W), with their count."""
-    from collections import Counter
-    return [dict(mode=m, branch=br, B=B, M=M, W=W, count=n)
-            for (m, br, B, M, W), n in Counter(map(tuple, shapes)).items()]
+    return _shape_counts(shapes, ("mode", "branch", "B", "M", "W"))
 
 
 def _walk_shapes(shapes) -> list[dict]:
     """tb_walk launches by (design, B, M, W), with their count."""
-    from collections import Counter
-    return [dict(branch=br, B=B, M=M, W=W, count=n)
-            for (br, B, M, W), n in Counter(map(tuple, shapes)).items()]
+    return _shape_counts(shapes, ("branch", "B", "M", "W"))
 
 
 def phase2b_eval_alt() -> dict:
@@ -721,10 +761,10 @@ def phase3_cuda_vs_cpu(seed: int) -> None:
 
 
 # The asm path's torch-op device functions (the JAX package's jitted XLA
-# code): module of the call site, attribute, and which call's inputs phase
-# 4b keeps (None: the first).
-WATCHED = (("phasing.realign", "_viterbi_batch", None),
-           ("phasing.phase", "_mec_phase",
+# code without a kernel yet): module of the call site, attribute, and which
+# call's inputs phase 4b keeps (None: the first).  The kernels' wrappers
+# are not wrapped: they count their own launches.
+WATCHED = (("phasing.phase", "_mec_phase",
             lambda args: args[0].numel()),       # the most observations
            ("partition.partition", "kmer_hashes",
             lambda args: args[0].shape[0] == 1 and args[0].numel()),
@@ -807,7 +847,7 @@ def phase4_asm(seed: int, profile: bool):
     calls, kept = {}, {}
     undo = _watch(calls, kept)
     STAGE_TIMES.clear()
-    ba.reset_launch_counts()
+    _reset_counts()
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA]) if profile \
@@ -820,6 +860,7 @@ def phase4_asm(seed: int, profile: bool):
     finally:
         undo()
     asm_s = time.perf_counter() - t0
+    kernel_launches = _counts()
     launches = {"banded_dp": ba.banded_dp.launches,
                 "tb_walk": ba.tb_walk.launches}
     dp_shapes = _dp_shapes(ba.banded_dp.shapes)
@@ -830,8 +871,8 @@ def phase4_asm(seed: int, profile: bool):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched during asm")
-    _log(f"phase 4: asm {asm_s:.1f} s, launches {launches}, torch-op "
-         f"device functions called {json.dumps(calls)}\n"
+    _log(f"phase 4: asm {asm_s:.1f} s, launches {kernel_launches}, "
+         f"torch-op device functions called {json.dumps(calls)}\n"
          f"phase 4: banded_dp launches by shape {json.dumps(dp_shapes)}\n"
          f"phase 4: tb_walk launches by shape {json.dumps(walk_shapes)}\n"
          + stage_report())
@@ -856,6 +897,7 @@ def phase4_asm(seed: int, profile: bool):
         raise AssertionError(f"phase 4: accuracy gate failed: {summary}")
     info = dict(asm_s=asm_s, sim_s=sim_s, vc_s=vc_s, reads=n_reads,
                 contigs=n_ctg, eval=summary, launches=launches,
+                kernel_launches=kernel_launches,
                 stages=stages, device_function_calls=calls,
                 banded_dp_shapes=dp_shapes, tb_walk_shapes=walk_shapes,
                 profile=profile_info)
@@ -923,6 +965,99 @@ def _viterbi_pairs(rng, B: int, R: int, W: int, err: float):
     return segs, lens, haps
 
 
+# the edge batches of the pair-HMM kernel check, (B, W, err, what) with
+# R = W + 16; tests/torch_inputs.py::VITERBI_EDGES, copied since the smoke
+# run imports no tests
+VITERBI_EDGES = {
+    "B1": (1, 41, 0.1, None),
+    "B37": (37, 41, 0.1, None),
+    "lens_0_and_R": (64, 41, 0.1, "lens_0_and_R"),
+    "all_N_haps": (64, 41, 0.1, "all_N_haps"),
+    "W9": (64, 9, 0.1, None),
+    "W200": (64, 200, 0.1, None),
+}
+
+
+def _viterbi_edge(name: str):
+    """One VITERBI_EDGES batch (tests/torch_inputs.py::viterbi_edge_case):
+    (segs, lens, haps, err, W)."""
+    import numpy as np
+    B, W, err, what = VITERBI_EDGES[name]
+    R = W + 16
+    rng = np.random.default_rng(B * 1000 + W)
+    segs, lens, haps = _viterbi_pairs(rng, B, R, W, err)
+    if what == "lens_0_and_R":
+        lens[::2] = 0
+        lens[1::2] = R
+        segs[::2] = 4
+        segs[1::2] = rng.integers(0, 4, (len(segs[1::2]), R))
+    elif what == "all_N_haps":
+        haps[:] = 4
+    return segs, lens, haps, err, W
+
+
+def _viterbi_row(name: str, segs, lens, haps, err: float, W: int,
+                 timed: bool) -> dict:
+    """The pair-HMM kernel (through `_viterbi_batch` on the card) against
+    its plain version on the card and on the CPU: fp32 scores bit-equal
+    (int32 view).  `timed`: the kernel's device time a launch (queued), the
+    plain version's on the card (host launches included, what the path
+    paid before the kernel), the CPU's (one call), the bound (fp32
+    operations of the cells the segments need) and the share."""
+    import numpy as np
+    import torch
+
+    from volcanosv_tpu_torch.phasing import realign
+    p = realign.PairHmmParams(err)
+    kw = dict(W=W, log_match=p.log_match, log_mis=p.log_mis,
+              log_ins=p.log_ins, a_mm=p.a_mm, a_gap=p.a_gap,
+              a_ext=p.a_ext, a_back=p.a_back)
+    cpu = [torch.from_numpy(x) for x in (segs, lens, haps)]
+    card = [x.to("cuda") for x in cpu]
+    t0 = time.perf_counter()
+    want = realign._viterbi_batch_plain(*cpu, **kw).numpy()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    plain = realign._viterbi_batch_plain(*card, **kw).cpu().numpy()
+    got = realign._viterbi_batch(*card, **kw).cpu().numpy()
+    bits = [x.view(np.int32) for x in (got, plain, want)]
+    if not (np.array_equal(bits[0], bits[1])
+            and np.array_equal(bits[0], bits[2])):
+        raise AssertionError(f"phase 4b: pair-HMM kernel != plain at {name}: "
+                             f"{int((bits[0] != bits[1]).sum())} of "
+                             f"{len(got)} scores differ")
+    B, R = segs.shape
+    row = dict(name=name, B=B, R=R, W=W, err=err, bit_equal=True,
+               max_abs_err=float(np.abs(got - plain).max()), cpu_ms=cpu_ms)
+    if timed:
+        ms = _time_queued_ms(lambda: realign._viterbi_batch(*card, **kw))
+        plain_ms = _time_calls_ms(
+            lambda: realign._viterbi_batch_plain(*card, **kw))
+        cells = int(np.where(lens <= R, lens, 0).sum()) * W
+        bound = _bound(B * (R + W + 8),
+                       cells * VITERBI_OPS_PER_CELL + 2 * B * W,
+                       FP32_OPS_PER_S)
+        row.update(ms=ms, plain_ms=plain_ms, **bound,
+                   share_of_bound=bound["bound_ms"] / ms, bound_type="fp32")
+    _log(f"phase 4b: pair-HMM {json.dumps(row)}")
+    return row
+
+
+def _viterbi_rows(seed: int) -> list[dict]:
+    """The pair-HMM kernel at the path's shape (8192 pairs, R = 57, W = 41,
+    error 0.002 and 0.1; timed), then at the edge batches."""
+    import numpy as np
+    rows = []
+    B, R, W = 8192, 57, 41
+    for err in (0.002, 0.1):
+        segs, lens, haps = _viterbi_pairs(np.random.default_rng(seed), B, R,
+                                          W, err)
+        rows.append(_viterbi_row(f"err={err}", segs, lens, haps, err, W,
+                                 True))
+    for name in VITERBI_EDGES:
+        rows.append(_viterbi_row(name, *_viterbi_edge(name), False))
+    return rows
+
+
 def _equal_tensors(got, want) -> bool:
     import torch
     if isinstance(want, torch.Tensor):
@@ -935,8 +1070,8 @@ def _asm_cuda_vs_cpu(d: str, dtype: str, err: float) -> dict:
     """`asm -d dtype` on cuda and on cpu on the pipeline test's recipe (80
     kb, 24x, 7 kb reads, seed 21) with substitutions at `err` and indels at
     `err / 2`: the four outputs must be byte-identical.  Returns the times,
-    the stage times, the output sizes and the torch-op device functions'
-    calls on the card."""
+    the stage times, the output sizes, the torch-op device functions'
+    calls and the kernels' launches on the card."""
     import numpy as np
 
     from volcanosv_tpu_torch import cli, sim
@@ -961,11 +1096,14 @@ def _asm_cuda_vs_cpu(d: str, dtype: str, err: float) -> dict:
         out = os.path.join(d, f"out_{device}")
         undo = _watch(calls, {}) if device == "cuda" else (lambda: None)
         STAGE_TIMES.clear()
+        _reset_counts()
         t0 = time.perf_counter()
         try:
             rc = cli.main(_asm_args(d, out, device) + ["-d", dtype])
         finally:
             undo()
+        if device == "cuda":
+            launches = _counts()
         if rc != 0:
             raise AssertionError(f"asm -d {dtype} --device {device} failed")
         secs[device] = time.perf_counter() - t0
@@ -982,23 +1120,21 @@ def _asm_cuda_vs_cpu(d: str, dtype: str, err: float) -> dict:
                                  "between cuda and cpu")
     info = dict(dtype=dtype, err=err, asm_s=secs, stages=stages,
                 bytes={n: len(b) for n, b in outs["cpu"].items()},
-                device_function_calls=calls)
+                device_function_calls=calls, kernel_launches=launches)
     _log(f"phase 4b: asm outputs byte-identical on cuda and cpu "
          f"{json.dumps(info)}")
     return info
 
 
 def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
-    """`asm` on cuda and cpu (byte-identical outputs), HiFi and CLR, then
-    each torch-op device function of the path, card against CPU, timed
-    beside its bound."""
+    """`asm` on cuda and cpu (byte-identical outputs), HiFi and CLR (where
+    the pair-HMM kernel must launch), then the pair-HMM kernel against its
+    plain version (`_viterbi_rows`) and each torch-op device function of
+    the path, card against CPU, timed beside its bound."""
     import math
 
-    import numpy as np
-    import torch
-
     from volcanosv_tpu_torch.ops import kmer
-    from volcanosv_tpu_torch.phasing import phase, realign
+    from volcanosv_tpu_torch.phasing import phase
     info = dict(hifi=_asm_cuda_vs_cpu(os.path.join(WORK, "asm_cuda_vs_cpu"),
                                       "Hifi", 0.001))
     # CLR (13.5% total error) realigns every candidate site through the
@@ -1006,32 +1142,12 @@ def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
     # allele call -> MEC -> partition -> assembly, card against CPU
     info["clr"] = _asm_cuda_vs_cpu(os.path.join(WORK, "asm_clr_cuda_vs_cpu"),
                                    "CLR", 0.09)
-    if info["clr"]["device_function_calls"].get("_viterbi_batch", 0) <= 0:
-        raise AssertionError("phase 4b: asm -d CLR never called the "
-                             "pair-HMM Viterbi on the card")
+    if info["clr"]["kernel_launches"]["pairhmm_viterbi"] <= 0:
+        raise AssertionError("phase 4b: asm -d CLR launched no pair-HMM "
+                             "kernel")
+    vrows = _viterbi_rows(seed)
 
-    dev = torch.device("cuda")
     rows = []
-    B, R, W = 8192, 57, 41
-    for err in (0.002, 0.1):
-        segs, lens, haps = _viterbi_pairs(np.random.default_rng(seed), B, R,
-                                          W, err)
-        p = realign.PairHmmParams(err)
-        kw = dict(W=W, log_match=p.log_match, log_mis=p.log_mis,
-                  log_ins=p.log_ins, a_mm=p.a_mm, a_gap=p.a_gap,
-                  a_ext=p.a_ext, a_back=p.a_back)
-        cells = int(lens.sum()) * W
-        bound = _bound(B * (R + W + 8),
-                       cells * VITERBI_OPS_PER_CELL + 2 * B * W,
-                       FP32_OPS_PER_S)
-        rows.append(dict(_card_vs_cpu(
-            f"_viterbi_batch err={err}",
-            lambda *a: realign._viterbi_batch(*a, **kw),
-            [torch.from_numpy(x).to(dev) for x in (segs, lens, haps)],
-            lambda g, w: np.array_equal(g.cpu().numpy().view(np.int32),
-                                        w.numpy().view(np.int32)),
-            bound), B=B, R=R, W=W, bound_type="fp32"))
-
     args, kw = kept["_mec_phase"]
     obs_read, obs_snp, obs_allele, h0 = args
     n_obs, (n_restarts, S) = obs_read.numel(), h0.shape
@@ -1087,6 +1203,7 @@ def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
         [h, v, t4, u4], _equal_tensors, _bound(n_bytes, ops)),
         B=Bk, n=nk, distinct=n_distinct, tables=H))
     info["device_functions"] = rows
+    info["pairhmm_viterbi"] = vrows
     return info
 
 
@@ -1192,11 +1309,10 @@ def _golden_gates(sim_dir: str, out: str, device: str = "cuda") -> dict:
 
 def phase5_run_golden(profile: bool) -> dict:
     """`sim` with the golden recipe (its truth must be the pinned
-    tests/data/golden_truth.vcf), `run --device cuda`, the golden gates;
-    stage times, the DP launches by shape and those of the complex-SV
+    tests/data/golden_truth.vcf), `run --device cuda`, traced on the card
+    for its busy time, the golden gates; stage times, the launches (the
+    pair-HMM kernel's among them) by shape and the DP's of the complex-SV
     stage, which must include the pairing's W = 128."""
-    import contextlib
-
     import torch
 
     from volcanosv_tpu_torch import cli
@@ -1216,21 +1332,28 @@ def phase5_run_golden(profile: bool) -> dict:
     complex_shapes = []
     undo = _watch_complex(complex_shapes)
     STAGE_TIMES.clear()
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA]) if profile \
-        else contextlib.nullcontext()
-    ba.reset_launch_counts()
+    # always traced on the card, for the busy time; --profile adds the
+    # host's ops
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    if profile:
+        activities.append(torch.profiler.ProfilerActivity.CPU)
+    prof = torch.profiler.profile(activities=activities)
+    _reset_counts()
     t0 = time.perf_counter()
     try:
         with prof:
             rc = cli.main(_run_args(sim_dir, out, "cuda"))
             torch.cuda.synchronize()
+            # the wall time, before the trace is collected on leaving
+            run_s = time.perf_counter() - t0
     finally:
         undo()
-    run_s = time.perf_counter() - t0
+    kernel_launches = _counts()
+    pairhmm_shapes = _shape_counts(_wrappers()["pairhmm_viterbi"].shapes,
+                                   ("B", "R", "W"))
     launches = {"banded_dp": ba.banded_dp.launches,
-                "tb_walk": ba.tb_walk.launches}
+                "tb_walk": ba.tb_walk.launches,
+                "pairhmm_viterbi": kernel_launches["pairhmm_viterbi"]}
     dp_shapes = _dp_shapes(ba.banded_dp.shapes)
     walk_shapes = _walk_shapes(ba.tb_walk.shapes)
     cx_shapes = _dp_shapes(complex_shapes)
@@ -1245,17 +1368,22 @@ def phase5_run_golden(profile: bool) -> dict:
     if not pairing:
         raise AssertionError(f"phase 5: no banded_dp launch at W = "
                              f"{PAIRING_W} inside complex-sv: {cx_shapes}")
-    _log(f"phase 5: run {run_s:.1f} s, launches {launches}\n"
+    _log(f"phase 5: run {run_s:.1f} s, launches {kernel_launches}\n"
+         f"phase 5: pairhmm_viterbi launches by shape "
+         f"{json.dumps(pairhmm_shapes)}\n"
          f"phase 5: banded_dp launches by shape {json.dumps(dp_shapes)}\n"
          f"phase 5: tb_walk launches by shape {json.dumps(walk_shapes)}\n"
          f"phase 5: banded_dp launches inside complex-sv "
          f"{json.dumps(cx_shapes)}\n" + stage_report())
-    profile_info = _profile_summary(prof, run_s) if profile else None
-    if profile:
-        _log(f"phase 5: profile {json.dumps(profile_info)}")
+    profile_info = _profile_summary(prof, run_s)
+    _log(f"phase 5: device busy {profile_info['busy_ms']:.1f} ms of "
+         f"{run_s:.1f} s; profile {json.dumps(profile_info)}")
     gates = _golden_gates(sim_dir, out)
     _log(f"phase 5: golden gates passed {json.dumps(gates)}")
     return dict(run_s=run_s, sim_s=sim_s, stages=stages, launches=launches,
+                kernel_launches=kernel_launches,
+                pairhmm_viterbi_shapes=pairhmm_shapes,
+                busy_ms=profile_info["busy_ms"],
                 banded_dp_shapes=dp_shapes, tb_walk_shapes=walk_shapes,
                 complex_sv_shapes=cx_shapes,
                 pairing_launches=sum(r["count"] for r in pairing),
@@ -1351,15 +1479,16 @@ def _coverage_case(seed: int):
 
 
 def _count_kernels(fn):
-    """fn() with the launch counts set to 0 first: (its result, the counts
-    after, the launches' shapes: banded_dp's (mode, design, B, M, W) and
-    tb_walk's (design, B, M, W))."""
-    from volcanosv_tpu_torch.ops import banded_align as ba
-    ba.reset_launch_counts()
+    """fn() with every launch count set to 0 first: (its result, the counts
+    after, the launches' shapes: banded_dp's (mode, design, B, M, W),
+    tb_walk's (design, B, M, W), and the coverage kernels' (B, T, S))."""
+    _reset_counts()
     out = fn()
-    return out, {"banded_dp": ba.banded_dp.launches,
-                 "tb_walk": ba.tb_walk.launches}, \
-        (list(ba.banded_dp.shapes), list(ba.tb_walk.shapes))
+    w = _wrappers()
+    return out, _counts(), \
+        (list(w["banded_dp"].shapes), list(w["tb_walk"].shapes),
+         list(w["coverage_viterbi"].shapes),
+         list(w["coverage_posteriors"].shapes))
 
 
 def _sd_case():
@@ -1417,12 +1546,14 @@ def _cli_cuda_vs_cpu(args, out_dir: str, names: list[str], tag: str):
                 bytes={n: len(b) for n, b in outs["cpu"].items()})
 
 
-def _hmm_at_scale(seed: int) -> dict:
+def _hmm_at_scale(seed: int, qc_shapes: list) -> dict:
     """The coverage HMM at chromosome scale (`_coverage_case`), card
     against CPU: fit_coverage_hmm (the same iterations; λ, τ and means
-    within rtol 1e-4), Viterbi labels equal, the card's posteriors no
+    within rtol 1e-4); the two kernels against their plain versions on the
+    card and on the CPU: Viterbi labels equal, the kernel's posteriors no
     further from a float64 forward-backward than twice the CPU's; each
-    timed beside its bound."""
+    timed beside its bound.  Then `_hmm_edges` at the tie-rich batches and
+    at qc's most launched shape (`qc_shapes`, (B, T, S) tuples)."""
     import numpy as np
     import torch
 
@@ -1460,41 +1591,49 @@ def _hmm_at_scale(seed: int) -> dict:
                              f"{json.dumps(fit)}")
     rows = []
     n_win = B * T
+    emit = {d: hmm._emissions(cov, valid, torch.device(d))
+            for d in ("cpu", "cuda")}
+    exact = flagger.posteriors_float64(hmm, cov, valid).transpose(1, 0, 2)
     for kind in ("viterbi", "posteriors"):
-        fn = getattr(hmm, kind)
+        kernel = getattr(flagger, f"coverage_{kind}")
+        plain = getattr(flagger, f"_{kind}_plain")
         t0 = time.perf_counter()
-        want = fn(cov, valid, "cpu")
+        want = plain(*emit["cpu"]).numpy()
         cpu_ms = (time.perf_counter() - t0) * 1e3
-        got = fn(cov, valid, "cuda")                     # also the warm-up
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        fn(cov, valid, "cuda")
-        e.record()
-        torch.cuda.synchronize()
-        ms = s.elapsed_time(e)
+        on_card, plain_ms = _timed_once(lambda: plain(*emit["cuda"]))
+        got = kernel(*emit["cuda"]).cpu().numpy()
+        on_card = on_card.cpu().numpy()
+        ms = _time_queued_ms(lambda: kernel(*emit["cuda"]))
+        # the method as qc calls it: emissions made on the card, the
+        # kernel, the result copied to the host
+        t0 = time.perf_counter()
+        getattr(hmm, kind)(cov, valid, "cuda")
+        method_ms = (time.perf_counter() - t0) * 1e3
         out_bytes = 1 if kind == "viterbi" else 4 * S
-        row = dict(name=f"CoverageHMM.{kind}", B=B, T=T, S=S,
-                   windows=int(valid.sum()), ms=ms, cpu_ms=cpu_ms,
-                   ms_per_window_step=ms / T,
+        row = dict(name=f"coverage_{kind}", B=B, T=T, S=S,
+                   windows=int(valid.sum()), ms=ms, plain_ms=plain_ms,
+                   cpu_ms=cpu_ms, method_ms=method_ms,
                    **_bound(n_win * (5 + out_bytes), n_win * _hmm_ops(S, kind),
                             FP32_OPS_PER_S))
         row["share_of_bound"] = row["bound_ms"] / ms
         if kind == "viterbi":
             # emissions and transitions are the same bits on both devices
             # and the recursion is adds and maxes: the labels are equal
-            if not np.array_equal(got, want):
-                raise AssertionError("phase 6: Viterbi labels card != CPU")
-            row["labels_equal"] = True
+            if not (np.array_equal(got, on_card)
+                    and np.array_equal(got, want)):
+                raise AssertionError("phase 6: Viterbi labels of the kernel "
+                                     "!= the plain version's")
+            row.update(labels_equal=True, max_abs_err=0.0)
         else:
             # float32 sums of 5000 windows' log likelihoods round at
             # |alpha| x 6e-8, and the card's exp and log round differently
-            # from the CPU's: the card is held to the float64
+            # from the CPU's: the kernel is held to the float64
             # forward-backward, at most twice as far from it as the CPU
-            exact = flagger.posteriors_float64(hmm, cov, valid)
             cpu_err = float(np.abs(want - exact).max())
             card_err = float(np.abs(got - exact).max())
-            row.update(max_abs_err=float(np.abs(got - want).max()),
+            row.update(max_abs_err=float(np.abs(got - on_card).max()),
                        card_vs_f64=card_err, cpu_vs_f64=cpu_err,
+                       plain_card_vs_f64=float(np.abs(on_card - exact).max()),
                        tolerance=2 * cpu_err)
             if not card_err <= 2 * cpu_err:
                 raise AssertionError(f"phase 6: posteriors on the card "
@@ -1509,7 +1648,92 @@ def _hmm_at_scale(seed: int) -> dict:
     fit_row["share_of_bound"] = fit_row["bound_ms"] / fit_ms
     rows.append(fit_row)
     _log(f"phase 6: {json.dumps(fit_row)}")
-    return dict(contigs=len(lens), windows=int(valid.sum()), rows=rows)
+    return dict(contigs=len(lens), windows=int(valid.sum()), rows=rows,
+                edges=_hmm_edges(qc_shapes))
+
+
+# the tie-rich batches of the coverage kernels' check, (S, B, T);
+# tests/torch_inputs.py::hmm_tie_case's inputs, copied since the smoke run
+# imports no tests
+HMM_EDGES = [(S, B, T) for S in (3, 4, 5) for B, T in ((3, 1), (3, 2),
+                                                       (8, 300))]
+STATE_MULTS = {3: [0.05, 1.0, 2.0], 4: [0.05, 0.5, 1.0, 2.0],
+               5: [0.05, 0.5, 1.0, 2.0, 4.0]}
+
+
+def _hmm_tie_case(rng, n_states: int, B: int, T: int):
+    """(means, tau, cov, valid): row 0 full, row 1 all padding (equal
+    scores in every state), the rest ragged; the two highest states share
+    one mean (tests/torch_inputs.py::hmm_tie_case)."""
+    import numpy as np
+    mults = np.asarray(STATE_MULTS[n_states])
+    lam = float(rng.uniform(5, 40))
+    cov = rng.poisson(lam * rng.choice(mults, (B, T))).astype(float)
+    lens = rng.integers(1, T + 1, B)
+    lens[0] = T
+    valid = np.arange(T)[None] < lens[:, None]
+    if B > 1:
+        valid[1] = False
+    cov[~valid] = 0
+    means = mults * lam
+    means[-1] = means[-2]
+    return means, float(rng.uniform(1, 3)), cov, valid
+
+
+def _hmm_edges(qc_shapes: list) -> list[dict]:
+    """Both coverage kernels against their plain versions on the card and
+    on the CPU at HMM_EDGES and at qc's most launched (B, T, S), on
+    tie-rich inputs: labels equal; posteriors no further from float64 than
+    1e-5 or twice the CPU's distance (tests/test_torch_qc.py's tolerance).
+    qc's shape is timed too."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    from volcanosv_tpu_torch.qc import flagger
+    rng = np.random.default_rng(26)
+    cases = [(f"ties S={S} B={B} T={T}", S, B, T) for S, B, T in HMM_EDGES]
+    if qc_shapes:
+        (B, T, S), _n = Counter(map(tuple, qc_shapes)).most_common(1)[0]
+        cases.append(("qc's top shape", S, B, T))
+    rows = []
+    for name, S, B, T in cases:
+        means, tau, cov, valid = _hmm_tie_case(rng, S, B, T)
+        hmm = flagger.CoverageHMM(means=means, tau=tau)
+        emit = {d: hmm._emissions(cov, valid, torch.device(d))
+                for d in ("cpu", "cuda")}
+        labels = [flagger.coverage_viterbi(*emit["cuda"]),
+                  flagger._viterbi_plain(*emit["cuda"]),
+                  flagger._viterbi_plain(*emit["cpu"])]
+        labels = [x.cpu().numpy() for x in labels]
+        post = [flagger.coverage_posteriors(*emit["cuda"]),
+                flagger._posteriors_plain(*emit["cuda"]),
+                flagger._posteriors_plain(*emit["cpu"])]
+        post = [x.cpu().numpy() for x in post]
+        exact = flagger.posteriors_float64(hmm, cov, valid).transpose(1, 0, 2)
+        card_err, _, cpu_err = (float(np.abs(p - exact).max()) for p in post)
+        row = dict(name=name, B=B, T=T, S=S,
+                   labels_equal=bool(np.array_equal(labels[0], labels[1])
+                                     and np.array_equal(labels[0],
+                                                        labels[2])),
+                   max_abs_err=float(np.abs(post[0] - post[1]).max()),
+                   card_vs_f64=card_err, cpu_vs_f64=cpu_err,
+                   tolerance=max(1e-5, 2 * cpu_err))
+        if not row["labels_equal"] or card_err > row["tolerance"]:
+            raise AssertionError(f"phase 6: coverage kernels != plain "
+                                 f"{json.dumps(row)}")
+        if name == "qc's top shape":
+            for kind in ("viterbi", "posteriors"):
+                kernel = getattr(flagger, f"coverage_{kind}")
+                plain = getattr(flagger, f"_{kind}_plain")
+                row[f"{kind}_ms"] = _time_queued_ms(
+                    lambda: kernel(*emit["cuda"]))
+                row[f"{kind}_plain_ms"] = _timed_once(
+                    lambda: plain(*emit["cuda"]))[1]
+        rows.append(row)
+        _log(f"phase 6: {json.dumps(row)}")
+    return rows
 
 
 def _sd_recover_cuda_vs_cpu() -> dict:
@@ -1546,11 +1770,12 @@ def phase6_qc_sd(seed: int) -> dict:
          "--contig", os.path.join(d4, "out", "final_contigs.fa"),
          "--fastq", os.path.join(d4, "reads.fastq")],
         os.path.join(WORK, "qc"), ["flagger_blocks.bed"], "qc")
-    if info["qc"]["launches"]["banded_dp"] <= 0:
-        raise AssertionError("phase 6: qc launched no banded_dp")
+    for name in ("banded_dp", "coverage_viterbi", "coverage_posteriors"):
+        if info["qc"]["launches"][name] <= 0:
+            raise AssertionError(f"phase 6: qc launched no {name}")
     _log(f"phase 6: qc on phase 4's contigs, flagger_blocks.bed "
          f"byte-identical on cuda and cpu {json.dumps(info['qc'])}")
-    info["hmm"] = _hmm_at_scale(seed)
+    info["hmm"] = _hmm_at_scale(seed, info["qc"]["shapes"][2])
     info["sd_recover"] = _sd_recover_cuda_vs_cpu()
     d4b = os.path.join(WORK, "asm_cuda_vs_cpu")
     info["asm_sd"] = _cli_cuda_vs_cpu(
@@ -1603,7 +1828,8 @@ def _mesh_split_check(seed: int) -> dict:
             q, t, qlen, tlen, device="cuda", **args))
     finally:
         set_active_mesh(None)
-    if not split == unsplit == want or launches != {"banded_dp": 2,
+    launched = {k: n for k, n in launches.items() if n}
+    if not split == unsplit == want or launched != {"banded_dp": 2,
                                                     "tb_walk": 2}:
         raise AssertionError(f"phase 7: the mesh split's CIGARs differ or "
                              f"it launched {launches}")
@@ -1702,6 +1928,54 @@ def _row_at_top_shape(rows: list[dict], shapes: list[dict],
         raise AssertionError(f"phase 1 checks no shape the path launched "
                              f"most: {top}")
     return check(top)
+
+
+def _scan_kernel_entries(info: dict, rng) -> list[dict]:
+    """The kernels-line entries of the pair-HMM kernel (launches on the
+    golden `run`, phase 5; checked and timed in phase 4b at the shape that
+    run launched most, or here when 4b lacks it) and of the two coverage
+    kernels (launches on `qc` and `asm --sd`, times at chromosome scale,
+    phase 6)."""
+    vrows = info["asm_cuda_vs_cpu"]["pairhmm_viterbi"]
+    top = info["run"]["pairhmm_viterbi_shapes"][0]
+    key = (top["B"], top["R"], top["W"])
+    head = next((r for r in vrows if "ms" in r
+                 and (r["B"], r["R"], r["W"]) == key), None)
+    if head is None:
+        B, R, W = key
+        segs, lens, haps = _viterbi_pairs(rng, B, R, W, 0.002)
+        head = _viterbi_row("the golden run's top shape", segs, lens, haps,
+                            0.002, W, True)
+        vrows = vrows + [head]
+    entries = [dict(
+        name="pairhmm_viterbi", route="cuda",
+        source="volcanosv_tpu_torch/csrc/pairhmm.cu",
+        replaces="volcanosv_tpu/phasing/realign.py:35",
+        path="run (golden sim)",
+        launches=info["run"]["kernel_launches"]["pairhmm_viterbi"],
+        launches_asm_clr=info["asm_cuda_vs_cpu"]["clr"]["kernel_launches"][
+            "pairhmm_viterbi"],
+        max_abs_err=max(r["max_abs_err"] for r in vrows), ms=head["ms"],
+        plain_ms=head["plain_ms"], cpu_ms=head["cpu_ms"],
+        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+        library_ms=None, shapes=vrows)]
+    hmm = info["qc_sd"]["hmm"]
+    qc_sd = [info["qc_sd"][k]["launches"] for k in ("qc", "asm_sd")]
+    for kind, line in (("viterbi", 120), ("posteriors", 146)):
+        name = f"coverage_{kind}"
+        row = next(r for r in hmm["rows"] if r["name"] == name)
+        entries.append(dict(
+            name=name, route="cuda",
+            source="volcanosv_tpu_torch/csrc/coverage_hmm.cu",
+            replaces=f"volcanosv_tpu/qc/flagger.py:{line}",
+            path="qc and asm --sd", launches=sum(c[name] for c in qc_sd),
+            max_abs_err=max([row["max_abs_err"]] + (
+                [e["max_abs_err"] for e in hmm["edges"]]
+                if kind == "posteriors" else [])),
+            ms=row["ms"], plain_ms=row["plain_ms"], cpu_ms=row["cpu_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None, shapes=[row] + hmm["edges"]))
+    return entries
 
 
 def main() -> int:
@@ -1859,6 +2133,7 @@ def main() -> int:
             ms=walk["ms"], plain_ms=walk["plain_ms"],
             bound_ms=walk["bound_ms"], bound_by=walk["bound_by"],
             library_ms=None, shapes=[walk]))
+    kernels += _scan_kernel_entries(info, rng)
     print(json.dumps(info))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -16,10 +16,18 @@ memory, or a thread per alignment) are held to the plain walk on DP
 tracebacks with long gaps and on random tracebacks, at the bucketed, the
 full and a cut step bound: packed streams and done flags bit-equal.
 
-The `asm` path's torch-op device functions (the pair-HMM Viterbi, the MEC
-votes, the k-mer ops) run the same ops on the card as on the CPU: their
-outputs on the card equal the CPU's, the Viterbi's fp32 scores bit for
-bit."""
+The pair-HMM Viterbi kernel (csrc/pairhmm.cu) is held to its plain
+version on the card over batches of 1 to 8192 pairs, W 9 to 1024 and
+three error rates: fp32 scores bit-equal (tolerance 0).  The coverage
+HMM's kernels (csrc/coverage_hmm.cu) are held to theirs over S 3-5 and
+T 1, 2 and 4970 on ragged, tie-rich batches: labels equal; posteriors no
+further from a float64 forward-backward than 1e-5 or twice the CPU plain
+version's distance (float32 sums of thousands of windows round at
+|alpha| x 6e-8, and the card's exp and log round differently).
+
+The `asm` path's torch-op device functions (the MEC votes, the k-mer ops)
+run the same ops on the card as on the CPU: their outputs on the card
+equal the CPU's."""
 import numpy as np
 import pytest
 import torch
@@ -27,7 +35,9 @@ import torch
 from volcanosv_tpu_torch.ops import banded_align as ba
 from volcanosv_tpu_torch.ops import kmer
 from volcanosv_tpu_torch.phasing import phase, realign
-from torch_inputs import viterbi_pairs
+from volcanosv_tpu_torch.qc import flagger
+from torch_inputs import (VITERBI_EDGES, hmm_tie_case, viterbi_edge_case,
+                          viterbi_pairs)
 
 DUAL = ba.Scores(match=2, mismatch=-4, gap_open=-4, gap_extend=-2,
                  gap_open2=-24, gap_extend2=-1)
@@ -384,6 +394,116 @@ def test_viterbi_batch_card_equals_cpu(cuda, err):
                                 alt[:5000], err, device=cuda),
         realign.pairhmm_alleles(segs[:5000], lens[:5000], haps[:5000],
                                 alt[:5000], err, device="cpu"))
+
+
+def _viterbi_kw(err, W):
+    p = realign.PairHmmParams(err)
+    return dict(W=W, log_match=p.log_match, log_mis=p.log_mis,
+                log_ins=p.log_ins, a_mm=p.a_mm, a_gap=p.a_gap,
+                a_ext=p.a_ext, a_back=p.a_back)
+
+
+def _check_viterbi_kernel(cuda, segs, lens, haps, err, W):
+    """The kernel against the plain version on the card: bit-equal scores,
+    one launch of shape (B, R, W)."""
+    args = [torch.from_numpy(x).to(cuda) for x in (segs, lens, haps)]
+    kw = _viterbi_kw(err, W)
+    realign._viterbi_batch.launches = 0
+    realign._viterbi_batch.shapes = []
+    got = realign._viterbi_batch(*args, **kw)
+    torch.cuda.synchronize()
+    want = realign._viterbi_batch_plain(*args, **kw)
+    assert got.dtype == want.dtype == torch.float32
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                  want.cpu().numpy().view(np.int32))
+    assert realign._viterbi_batch.launches == 1
+    assert realign._viterbi_batch.shapes == [segs.shape + (W,)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("err", [0.002, 0.1, 0.3])
+@pytest.mark.parametrize("W", [9, 41, 64, 200])
+@pytest.mark.parametrize("B", [1, 37, 8192])
+def test_pairhmm_kernel_matches_plain(cuda, B, W, err):
+    segs, lens, haps = viterbi_pairs(np.random.default_rng(B + W), B,
+                                     W + 16, W, err)
+    _check_viterbi_kernel(cuda, segs, lens, haps, err, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(VITERBI_EDGES) + ["W1", "W1024",
+                                                        "R0"])
+def test_pairhmm_kernel_edge_batches(cuda, case):
+    """Empty and full segments, all-N windows, the narrowest and widest
+    windows the kernel takes, segments of no columns."""
+    if case in VITERBI_EDGES:
+        _check_viterbi_kernel(cuda, *viterbi_edge_case(case))
+        return
+    W = {"W1": 1, "W1024": 1024, "R0": 41}[case]
+    R = 0 if case == "R0" else W + 16
+    rng = np.random.default_rng(W)
+    segs, lens, haps = viterbi_pairs(rng, 64, R, W, 0.1)
+    _check_viterbi_kernel(cuda, segs, lens, haps, 0.1, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 2, 4970])
+@pytest.mark.parametrize("n_states", [3, 4, 5])
+def test_coverage_kernels_match_plain(cuda, n_states, T):
+    """Ragged, tie-rich batches (an all-padded row, two states of one
+    mean): the Viterbi kernel's labels equal the plain version's on the
+    card and on the CPU; the posteriors kernel within 1e-5 or twice the
+    CPU's distance of a float64 forward-backward."""
+    means, tau, cov, valid = hmm_tie_case(
+        np.random.default_rng(n_states * 10 + T), n_states, 9, T)
+    hmm = flagger.CoverageHMM(means=means, tau=tau)
+    emit = {d: hmm._emissions(cov, valid, torch.device(d))
+            for d in (cuda, "cpu")}
+    for fn in (flagger.coverage_viterbi, flagger.coverage_posteriors):
+        fn.launches = 0
+    labels = flagger.coverage_viterbi(*emit[cuda]).cpu()
+    assert labels.dtype == torch.int8 and labels.shape == (9, T)
+    assert torch.equal(labels, flagger._viterbi_plain(*emit[cuda]).cpu())
+    assert torch.equal(labels, flagger._viterbi_plain(*emit["cpu"]))
+    exact = flagger.posteriors_float64(hmm, cov, valid).transpose(1, 0, 2)
+    got = flagger.coverage_posteriors(*emit[cuda]).cpu().numpy()
+    cpu = flagger._posteriors_plain(*emit["cpu"]).numpy()
+    assert got.dtype == np.float32 and got.shape == (T, 9, n_states)
+    cpu_err = float(np.abs(cpu - exact).max())
+    assert float(np.abs(got - exact).max()) <= max(1e-5, 2 * cpu_err)
+    assert flagger.coverage_viterbi.launches == 1
+    assert flagger.coverage_posteriors.launches == 1
+
+
+@pytest.mark.cuda
+def test_scan_kernel_wrappers_reject_bad_inputs(cuda):
+    segs = torch.zeros((4, 20), dtype=torch.int8, device=cuda)
+    lens = torch.full((4,), 10, dtype=torch.int32, device=cuda)
+    haps = torch.zeros((4, 9), dtype=torch.int8, device=cuda)
+    kw = _viterbi_kw(0.1, 9)
+    bad = [(segs.int(), lens, haps, kw), (segs, lens.long(), haps, kw),
+           (segs, lens, haps[:, :8], kw),                   # W mismatch
+           (segs.T.contiguous().T, lens, haps, kw),          # strided
+           (segs, lens[:3], haps, kw),
+           (segs, lens, torch.zeros((4, 1025), dtype=torch.int8,
+                                    device=cuda), _viterbi_kw(0.1, 1025))]
+    for s, ln, h, k in bad:
+        with pytest.raises(ValueError):
+            realign._viterbi_batch(s, ln, h, **k)
+    emit = torch.zeros((5, 3, 4), device=cuda)
+    logA = torch.zeros((4, 4), device=cuda)
+    logpi = torch.zeros(4, device=cuda)
+    for fn in (flagger.coverage_viterbi, flagger.coverage_posteriors):
+        for e, a, p in ((emit.double(), logA, logpi),
+                        (emit, logA[:3, :3], logpi),
+                        (emit.transpose(0, 1).contiguous().transpose(0, 1),
+                         logA, logpi),
+                        (torch.zeros((5, 3, 9), device=cuda),
+                         torch.zeros((9, 9), device=cuda),
+                         torch.zeros(9, device=cuda)),
+                        (emit, logA, logpi.cpu())):
+            with pytest.raises(ValueError):
+                fn(e, a, p)
 
 
 @pytest.mark.cuda

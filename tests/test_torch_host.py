@@ -256,6 +256,74 @@ def test_port_modules_import_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def _kernel_wrapper_calls():
+    """The pair-HMM and coverage-HMM kernel wrappers on small CPU inputs."""
+    import torch
+
+    from volcanosv_tpu_torch.phasing import realign
+    from volcanosv_tpu_torch.qc import flagger
+    p = realign.PairHmmParams(0.1)
+    segs = torch.zeros((3, 9), dtype=torch.int8)
+    haps = torch.zeros((3, 5), dtype=torch.int8)
+    lens = torch.tensor([0, 4, 9], dtype=torch.int32)
+    cov = np.array([[10.0, 12.0, 0.0], [20.0, 0.0, 0.0]])
+    emit = flagger.CoverageHMM.from_lambda(10.0)._emissions(
+        cov, cov > 0, torch.device("cpu"))
+    return {
+        "pairhmm_viterbi": (lambda: realign._viterbi_batch(
+            segs, lens, haps, W=5, **vars(p)), (3,)),
+        "coverage_viterbi": (lambda: flagger.coverage_viterbi(*emit),
+                             (2, 3)),
+        "coverage_posteriors": (lambda: flagger.coverage_posteriors(*emit),
+                                (3, 2, 4)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["pairhmm_viterbi", "coverage_viterbi",
+                                    "coverage_posteriors"])
+def test_cpu_calls_never_load_kernels(monkeypatch, kernel):
+    """A wrapper given CPU tensors runs its plain version: it neither
+    builds nor loads a CUDA library."""
+    from volcanosv_tpu_torch.ops import cuda_build
+
+    def refuse(*_a):
+        raise AssertionError("a CPU call reached cuda_build")
+    monkeypatch.setattr(cuda_build, "load_all", refuse)
+    monkeypatch.setattr(cuda_build, "lib", refuse)
+    call, shape = _kernel_wrapper_calls()[kernel]
+    assert tuple(call().shape) == shape
+
+
+def test_kernel_sources_define_bound_symbols():
+    """Every library in cuda_build.SOURCES has its csrc/<name>.cu, and that
+    file exports (extern "C") each symbol `_configure` binds, its
+    <name>_error_string among them."""
+    import re
+
+    from volcanosv_tpu_torch.ops import cuda_build
+
+    class Recorder:
+        def __init__(self):
+            self.names = set()
+
+        def __getattr__(self, attr):
+            self.names.add(attr)
+            fn = type("Symbol", (), {})()
+            self.__dict__[attr] = fn
+            return fn
+    for name in cuda_build.SOURCES:
+        path = os.path.join(cuda_build.CSRC, f"{name}.cu")
+        assert os.path.exists(path), path
+        with open(path) as fh:
+            src = fh.read()
+        rec = Recorder()
+        cuda_build._configure(name, rec)
+        assert f"{name}_error_string" in rec.names
+        for sym in rec.names:
+            assert re.search(r'extern "C"[^;{(]*\b' + sym + r"\s*\(", src), \
+                (name, sym)
+
+
 def _dp_batch():
     q = np.zeros((64, 32), np.int8)
     return q, np.zeros((64, 96), np.int8), np.ones(64, np.int32), \

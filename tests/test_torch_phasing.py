@@ -30,7 +30,8 @@ from volcanosv_tpu_torch.io.vcf import make_header, write_vcf
 from volcanosv_tpu_torch.phasing import phase, pileup, realign, snp_vcf
 from volcanosv_tpu_torch.utils import threefry
 from tests.test_realign import _mk_ref, _reads
-from torch_inputs import ensure_reference_native_lib, viterbi_pairs
+from torch_inputs import (VITERBI_EDGES, ensure_reference_native_lib,
+                          viterbi_edge_case, viterbi_pairs)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -89,6 +90,28 @@ def test_viterbi_batch_bit_equal(err):
     np.testing.assert_array_equal(
         realign.pairhmm_alleles(segs, lens, haps, alt, err, device="cpu"),
         ref_realign.pairhmm_alleles(segs, lens, haps, alt, err))
+
+
+@pytest.mark.parametrize("case", list(VITERBI_EDGES))
+def test_viterbi_plain_bit_equal_on_edge_batches(case):
+    """The plain version (the CPU path of `_viterbi_batch`) against the
+    JAX package's jitted scan on the edge batches the card is checked at:
+    one pair, 37 pairs, empty and full segments, all-N windows, W 9 and
+    200: fp32 scores bit-equal."""
+    segs, lens, haps, err, W = viterbi_edge_case(case)
+    p = ref_realign.PairHmmParams(err)
+    kw = dict(W=W, log_match=p.log_match, log_mis=p.log_mis,
+              log_ins=p.log_ins, a_mm=p.a_mm, a_gap=p.a_gap, a_ext=p.a_ext,
+              a_back=p.a_back)
+    want = np.asarray(ref_realign._viterbi_batch(
+        jnp.asarray(segs), jnp.asarray(lens), jnp.asarray(haps), **kw))
+    args = [torch.from_numpy(x) for x in (segs, lens, haps)]
+    got = realign._viterbi_batch_plain(*args, **kw).numpy()
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(
+        realign._viterbi_batch(*args, **kw).numpy().view(np.int32),
+        got.view(np.int32))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_inputs import ensure_reference_native_lib
+from torch_inputs import ensure_reference_native_lib, hmm_tie_case
 from volcanosv_tpu.config import PipelineConfig as RefPipelineConfig
 from volcanosv_tpu.config import QCConfig as RefQCConfig
 from volcanosv_tpu.io.bam import BamRecord as RefBamRecord
@@ -99,6 +99,20 @@ def test_hmm_matches_on_ragged_batches(n_states):
     rng = np.random.default_rng(10 + n_states)
     for B, T in ((1, 1), (3, 2), (5, 60), (4, 150)):
         _check_hmm(*_ragged(rng, n_states, B, T))
+
+
+@pytest.mark.parametrize("n_states", [3, 4, 5])
+def test_hmm_labels_match_on_ties(n_states):
+    """Tie-rich batches (an all-padded row, two states with one mean) at
+    T 1 and 2 and longer: the plain labels equal the JAX package's, which
+    takes the first state on ties, as the kernel does."""
+    rng = np.random.default_rng(20 + n_states)
+    for B, T in ((3, 1), (3, 2), (4, 40)):
+        means, tau, cov, valid = hmm_tie_case(rng, n_states, B, T)
+        _check_hmm(means, tau, cov, valid)
+        emit = port.CoverageHMM(means=means, tau=tau)._emissions(
+            cov, valid, torch.device("cpu"))
+        assert port._viterbi_plain(*emit)[1].eq(0).all()  # ties: the first
 
 
 @pytest.mark.parametrize("name,n_states", [

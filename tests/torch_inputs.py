@@ -29,6 +29,59 @@ def viterbi_pairs(rng, B, R, W, err):
     return segs, lens, haps
 
 
+# the edge batches of the pair-HMM Viterbi: (B, W, err, what), R = W + 16
+VITERBI_EDGES = {
+    "B1": (1, 41, 0.1, None),
+    "B37": (37, 41, 0.1, None),
+    "lens_0_and_R": (64, 41, 0.1, "lens_0_and_R"),
+    "all_N_haps": (64, 41, 0.1, "all_N_haps"),
+    "W9": (64, 9, 0.1, None),
+    "W200": (64, 200, 0.1, None),
+}
+
+
+def viterbi_edge_case(name):
+    """One VITERBI_EDGES batch: (segs, lens, haps, err, W).  lens_0_and_R:
+    every second segment empty, the others R random bases; all_N_haps:
+    every window all N (code 4)."""
+    B, W, err, what = VITERBI_EDGES[name]
+    R = W + 16
+    rng = np.random.default_rng(B * 1000 + W)
+    segs, lens, haps = viterbi_pairs(rng, B, R, W, err)
+    if what == "lens_0_and_R":
+        lens[::2] = 0
+        lens[1::2] = R
+        segs[::2] = 4
+        segs[1::2] = rng.integers(0, 4, (len(segs[1::2]), R))
+    elif what == "all_N_haps":
+        haps[:] = 4
+    return segs, lens, haps, err, W
+
+
+# the coverage HMM's state-multiplier ladders (qc/flagger.py::state_mults)
+STATE_MULTS = {3: [0.05, 1.0, 2.0], 4: [0.05, 0.5, 1.0, 2.0],
+               5: [0.05, 0.5, 1.0, 2.0, 4.0]}
+
+
+def hmm_tie_case(rng, n_states, B, T):
+    """A ragged coverage batch rich in Viterbi ties: (means, tau, cov,
+    valid).  Row 0 is full, row 1 all padding (equal scores in every
+    state), the rest ragged; the two highest states share one mean, so
+    their emissions are the same bits."""
+    mults = np.asarray(STATE_MULTS[n_states])
+    lam = float(rng.uniform(5, 40))
+    cov = rng.poisson(lam * rng.choice(mults, (B, T))).astype(float)
+    lens = rng.integers(1, T + 1, B)
+    lens[0] = T
+    valid = np.arange(T)[None] < lens[:, None]
+    if B > 1:
+        valid[1] = False
+    cov[~valid] = 0
+    means = mults * lam
+    means[-1] = means[-2]
+    return means, float(rng.uniform(1, 3)), cov, valid
+
+
 def ensure_reference_native_lib():
     """Load the JAX package's native library, whole, in this process.
 

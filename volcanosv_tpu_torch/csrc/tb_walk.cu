@@ -430,6 +430,10 @@ __global__ void smem_chase_kernel(int n, long long* out) {
 
 }  // namespace
 
+extern "C" const char* tb_walk_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
 // The walk of B alignments on `stream`: branch 1 = a warp per alignment
 // (the caller ensures W % 32 == 0 and a 16-byte aligned tb: the design
 // stages 16-byte pieces of the traceback in windows of 32 (W = 32) or 64

@@ -301,7 +301,7 @@ def banded_dp(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
             tb.data_ptr() if tb is not None else None,
             row0.data_ptr() if row0 is not None else None,
             torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(rc, "banded_dp launch")
+    cuda_build.check(rc, "banded_dp launch", "banded_dp")
     banded_dp.launches += 1
     taken = banded_dp_branch(W) if branch == "auto" else branch
     banded_dp.shapes.append((dp_mode(scores, with_traceback, free_t_end,
@@ -420,7 +420,7 @@ def tb_walk(tb: torch.Tensor, qlen: torch.Tensor, tlen: torch.Tensor,
             tlen.data_ptr(), B, M, W, d_lo, n_steps, packed.data_ptr(),
             done.data_ptr(),
             torch.cuda.current_stream(tb.device).cuda_stream)
-    cuda_build.check(rc, "tb_walk launch")
+    cuda_build.check(rc, "tb_walk launch", "tb_walk")
     tb_walk.launches += 1
     tb_walk.shapes.append((taken, B, M, W))
     return packed, done

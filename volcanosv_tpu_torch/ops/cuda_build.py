@@ -18,7 +18,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("banded_dp", "tb_walk")
+SOURCES = ("banded_dp", "tb_walk", "pairhmm", "coverage_hmm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,7 +42,11 @@ def build_dir() -> str:
 
 
 def _configure(name: str, lib: ctypes.CDLL) -> None:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # every library exports <name>_error_string, which check() reads
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ci]
+    err.restype = ctypes.c_char_p
     if name == "banded_dp":
         lib.banded_dp_launch.argtypes = [vp, vp, vp, vp] + [ci] * 16 + [vp] * 5
         lib.banded_dp_launch.restype = ci
@@ -51,14 +55,24 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
         lib.banded_dp_launch_branch.restype = ci
         lib.banded_dp_branch.argtypes = [ci]
         lib.banded_dp_branch.restype = ci
-        lib.banded_dp_error_string.argtypes = [ci]
-        lib.banded_dp_error_string.restype = ctypes.c_char_p
     elif name == "tb_walk":
         lib.tb_walk_launch_branch.argtypes = \
             [ci, vp, vp, vp] + [ci] * 5 + [vp] * 3
         lib.tb_walk_launch_branch.restype = ci
         lib.smem_chase.argtypes = [ci, vp, vp]
         lib.smem_chase.restype = ci
+    elif name == "pairhmm":
+        lib.pairhmm_viterbi_launch.argtypes = \
+            [vp] * 3 + [ci] * 3 + [cf] * 8 + [vp] * 2
+        lib.pairhmm_viterbi_launch.restype = ci
+    elif name == "coverage_hmm":
+        lib.coverage_viterbi_scratch_bytes.argtypes = [ci] * 3
+        lib.coverage_viterbi_scratch_bytes.restype = ctypes.c_longlong
+        lib.coverage_viterbi_launch.argtypes = [vp] * 3 + [ci] * 3 + [vp] * 3
+        lib.coverage_viterbi_launch.restype = ci
+        lib.coverage_posteriors_launch.argtypes = \
+            [vp] * 3 + [ci] * 3 + [vp] * 2
+        lib.coverage_posteriors_launch.restype = ci
 
 
 def load_all() -> dict[str, ctypes.CDLL]:
@@ -103,8 +117,9 @@ def lib(name: str) -> ctypes.CDLL:
     return load_all()[name]
 
 
-def check(rc: int, what: str) -> None:
-    """Raise on a nonzero cudaError_t returned by a launch entry point."""
+def check(rc: int, what: str, name: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a launch entry point of
+    library `name`."""
     if rc != 0:
-        msg = lib("banded_dp").banded_dp_error_string(rc).decode()
+        msg = getattr(lib(name), f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

@@ -10,16 +10,19 @@ homopolymer and the mismatch column shifts.
 
 Device design: all (site × covering-read) pairs are padded to fixed
 (B, R) read-segment / (B, W) haplotype-window batches and scored by one
-affine-gap Viterbi in fp32 log space on the caller's torch device — a loop
-over read rows with the delete-chain linear recurrence solved by a running
-prefix-max (`cummax`) instead of a sequential column loop, so every row is
-a few elementwise ops over the whole batch.  Free start/end gaps on the
-haplotype side (the window flanks are arbitrary), read segment fully
-consumed.
+affine-gap Viterbi in fp32 log space on the caller's torch device.  Free
+start/end gaps on the haplotype side (the window flanks are arbitrary),
+read segment fully consumed.  `_viterbi_batch` dispatches on the tensors'
+device: on the CPU `_viterbi_batch_plain`, a loop over read rows with the
+delete-chain linear recurrence solved by a running prefix-max (`cummax`)
+instead of a sequential column loop, so every row is a few elementwise ops
+over the whole batch; on the card the hand-written kernel
+`csrc/pairhmm.cu` (a warp per pair), or it raises.
 
-Rounding: every product and sum is its own torch op, in the order of the
+Rounding: every product and sum is its own operation, in the order of the
 reference's jnp code, on fp32 operands (the constants are fp32 scalars,
-as jit makes them).  Nothing is fused, so the CPU, the card and the
+as jit makes them): one torch op each in the plain version, __fadd_rn /
+__fmul_rn in the kernel.  Nothing is fused, so the CPU, the card and the
 reference give bit-equal scores; a fused multiply-add would round once
 where the reference rounds twice and could flip an allele call
 (|Δ| > margin).
@@ -38,11 +41,11 @@ from ..device import DEFAULT_DEVICE, resolve_device
 NEG = -1e9
 
 
-def _viterbi_batch(segs: torch.Tensor, seg_lens: torch.Tensor,
-                   haps: torch.Tensor, *, W: int, log_match, log_mis,
-                   log_ins, a_mm, a_gap, a_ext, a_back) -> torch.Tensor:
+def _viterbi_batch_plain(segs: torch.Tensor, seg_lens: torch.Tensor,
+                         haps: torch.Tensor, *, W: int, log_match, log_mis,
+                         log_ins, a_mm, a_gap, a_ext, a_back) -> torch.Tensor:
     """(B, R) read segments vs (B, W) hap windows → (B,) fp32 Viterbi
-    scores, on the inputs' device.
+    scores, as torch ops on the inputs' device.
 
     States: M (consume both), I (consume read), D (consume hap).  Start
     free in any hap column; end free at any hap column on the row where
@@ -85,6 +88,62 @@ def _viterbi_batch(segs: torch.Tensor, seg_lens: torch.Tensor,
         best = torch.where(done, torch.maximum(best, rowmax), best)
         m, i_, d = m_new, i_new, d_new
     return best
+
+
+# the kernel's widest window: 32 columns a lane (csrc/pairhmm.cu)
+MAX_W = 1024
+
+
+def _viterbi_batch(segs: torch.Tensor, seg_lens: torch.Tensor,
+                   haps: torch.Tensor, *, W: int, log_match, log_mis,
+                   log_ins, a_mm, a_gap, a_ext, a_back) -> torch.Tensor:
+    """(B, R) int8 read segments, (B,) int32 lengths and (B, W) int8 hap
+    windows → (B,) fp32 Viterbi scores on the inputs' device: the CUDA
+    kernel for CUDA tensors (launched on the current stream, no
+    synchronisation), `_viterbi_batch_plain` for CPU tensors; the two are
+    bit-equal.  On CUDA the inputs must be contiguous, 1 <= W <= MAX_W,
+    any R.  Each launch appends (B, R, W) to `_viterbi_batch.shapes`."""
+    consts = dict(log_match=log_match, log_mis=log_mis, log_ins=log_ins,
+                  a_mm=a_mm, a_gap=a_gap, a_ext=a_ext, a_back=a_back)
+    if segs.device.type == "cpu":
+        return _viterbi_batch_plain(segs, seg_lens, haps, W=W, **consts)
+    if segs.device.type != "cuda":
+        raise ValueError(f"_viterbi_batch: unsupported device {segs.device}")
+    from ..ops import cuda_build
+    if segs.dim() != 2 or seg_lens.shape != segs.shape[:1] or \
+            haps.shape != (segs.shape[0], W):
+        raise ValueError(f"_viterbi_batch: shapes {tuple(segs.shape)}, "
+                         f"{tuple(seg_lens.shape)}, {tuple(haps.shape)} are "
+                         f"not (B, R), (B,), (B, W={W})")
+    for name, x, dt in (("segs", segs, torch.int8),
+                        ("seg_lens", seg_lens, torch.int32),
+                        ("haps", haps, torch.int8)):
+        if x.dtype != dt or not x.is_contiguous() or x.device != segs.device:
+            raise ValueError(f"_viterbi_batch: {name} must be a contiguous "
+                             f"{dt} tensor on {segs.device}")
+    if not 1 <= W <= MAX_W:
+        raise ValueError(f"_viterbi_batch: W={W} outside 1..{MAX_W}")
+    B, R = segs.shape
+    out = torch.empty(B, dtype=torch.float32, device=segs.device)
+    if B == 0:
+        return out
+    # the fp32 constants of the plain version (float64 rounded once)
+    f32 = [float(np.float32(x)) for x in (
+        log_match, log_mis, log_ins, np.log(0.25), a_mm, a_gap, a_ext,
+        a_back)]
+    with torch.cuda.device(segs.device):     # the launch goes to segs' card
+        rc = cuda_build.lib("pairhmm").pairhmm_viterbi_launch(
+            segs.data_ptr(), seg_lens.data_ptr(), haps.data_ptr(), B, R, W,
+            *f32, out.data_ptr(),
+            torch.cuda.current_stream(segs.device).cuda_stream)
+    cuda_build.check(rc, "pairhmm_viterbi launch", "pairhmm")
+    _viterbi_batch.launches += 1
+    _viterbi_batch.shapes.append((B, R, W))
+    return out
+
+
+_viterbi_batch.launches = 0
+_viterbi_batch.shapes = []
 
 
 class PairHmmParams:

@@ -9,12 +9,14 @@ whose states classify each window as **err** (~0× coverage), **dup**
 components drive SD re-assembly (`General_Assembly_Workflow_SD.py` →
 `Replace_Collapsed_Contigs.py`).
 
-The Viterbi and forward-backward recursions run as torch ops on the
-caller's device: a loop over the T windows carrying the (B, S) state of a
-padded batch of B contigs, so one pass makes a few launches a window
-whatever the number of contigs.  They compute in float32, as the JAX
-package does (its x64 mode is off), with the same add order, so that the
-state labels are the same; the posteriors' logsumexp is another
+The Viterbi and forward-backward recursions run on the caller's device
+through `coverage_viterbi` and `coverage_posteriors`: on the CPU their plain
+versions (`_viterbi_plain`, `_posteriors_plain`: torch ops in a loop over
+the T windows carrying the (B, S) state of a padded batch of B contigs), on
+the card the hand-written kernels of `csrc/coverage_hmm.cu` (a thread per
+contig walking all T windows), or they raise.  They compute in float32, as
+the JAX package does (its x64 mode is off), with the same add order, so
+that the state labels are the same; the posteriors' logsumexp is another
 implementation's and agrees within a tolerance.
 """
 from __future__ import annotations
@@ -147,39 +149,149 @@ class CoverageHMM:
         Returns (B, T) int8 state labels.  The backpointers stay on
         `device` and are walked back there."""
         device = resolve_device(device)
-        emit, logA, logpi = self._emissions(cov, valid, device)
-        T, B, S = emit.shape
-        ptrs = torch.empty((T - 1, B, S), dtype=torch.int64, device=device)
-        delta = logpi + emit[0]
-        for t in range(1, T):
-            # (delta + logA) + e: the reference's add order
-            scores = (delta[:, :, None] + logA) + emit[t][:, None, :]
-            delta, ptrs[t - 1] = torch.max(scores, dim=1)
-        states = torch.empty((T, B), dtype=torch.int64, device=device)
-        states[T - 1] = torch.argmax(delta, dim=1)
-        for t in range(T - 2, -1, -1):
-            states[t] = ptrs[t].gather(1, states[t + 1][:, None])[:, 0]
-        return states.T.to(torch.int8).cpu().numpy()
+        return coverage_viterbi(
+            *self._emissions(cov, valid, device)).cpu().numpy()
 
     def posteriors(self, cov: np.ndarray, valid: np.ndarray,
                    device=DEFAULT_DEVICE) -> np.ndarray:
         """Forward-backward state posteriors (B, T, S), float32."""
         device = resolve_device(device)
-        emit, logA, logpi = self._emissions(cov, valid, device)
-        T, B, S = emit.shape
-        alphas = torch.empty((T, B, S), dtype=torch.float32, device=device)
-        alphas[0] = logpi + emit[0]
-        for t in range(1, T):
-            alphas[t] = torch.logsumexp(alphas[t - 1][:, :, None] + logA,
-                                        dim=1) + emit[t]
-        betas = torch.empty_like(alphas)
-        betas[T - 1] = 0.0
-        for t in range(T - 2, -1, -1):
-            betas[t] = torch.logsumexp(
-                logA + (emit[t + 1] + betas[t + 1])[:, None, :], dim=2)
-        post = torch.softmax(alphas + betas, dim=-1)
+        post = coverage_posteriors(*self._emissions(cov, valid, device))
         return post.transpose(0, 1).cpu().numpy()
 
+
+def _viterbi_plain(emit: torch.Tensor, logA: torch.Tensor,
+                   logpi: torch.Tensor) -> torch.Tensor:
+    """Viterbi labels as torch ops on emit's device: emissions (T, B, S),
+    log transitions (S, S), log initial (S,) → (B, T) int8."""
+    T, B, S = emit.shape
+    device = emit.device
+    ptrs = torch.empty((T - 1, B, S), dtype=torch.int64, device=device)
+    delta = logpi + emit[0]
+    for t in range(1, T):
+        # (delta + logA) + e: the reference's add order
+        scores = (delta[:, :, None] + logA) + emit[t][:, None, :]
+        delta, ptrs[t - 1] = torch.max(scores, dim=1)
+    states = torch.empty((T, B), dtype=torch.int64, device=device)
+    states[T - 1] = torch.argmax(delta, dim=1)
+    for t in range(T - 2, -1, -1):
+        states[t] = ptrs[t].gather(1, states[t + 1][:, None])[:, 0]
+    return states.T.to(torch.int8)
+
+
+def _posteriors_plain(emit: torch.Tensor, logA: torch.Tensor,
+                      logpi: torch.Tensor) -> torch.Tensor:
+    """Forward-backward posteriors as torch ops on emit's device:
+    emissions (T, B, S), log transitions (S, S), log initial (S,) →
+    (T, B, S) float32."""
+    T, B, S = emit.shape
+    alphas = torch.empty((T, B, S), dtype=torch.float32, device=emit.device)
+    alphas[0] = logpi + emit[0]
+    for t in range(1, T):
+        alphas[t] = torch.logsumexp(alphas[t - 1][:, :, None] + logA,
+                                    dim=1) + emit[t]
+    betas = torch.empty_like(alphas)
+    betas[T - 1] = 0.0
+    for t in range(T - 2, -1, -1):
+        betas[t] = torch.logsumexp(
+            logA + (emit[t + 1] + betas[t + 1])[:, None, :], dim=2)
+    return torch.softmax(alphas + betas, dim=-1)
+
+
+# the kernels' most states (csrc/coverage_hmm.cu)
+MAX_STATES = 8
+
+
+def _check_hmm_inputs(what: str, emit: torch.Tensor, logA: torch.Tensor,
+                      logpi: torch.Tensor) -> None:
+    """Raise ValueError unless the kernels take these inputs: contiguous
+    float32 emissions (T, B, S), logA (S, S), logpi (S,) on one card,
+    T >= 1, 1 <= S <= MAX_STATES."""
+    if emit.dim() != 3:
+        raise ValueError(f"{what}: emissions must be (T, B, S), got "
+                         f"{tuple(emit.shape)}")
+    T, B, S = emit.shape
+    if logA.shape != (S, S) or logpi.shape != (S,):
+        raise ValueError(f"{what}: logA {tuple(logA.shape)} and logpi "
+                         f"{tuple(logpi.shape)} do not match S={S}")
+    for name, x in (("emissions", emit), ("logA", logA), ("logpi", logpi)):
+        if x.dtype != torch.float32 or not x.is_contiguous() or \
+                x.device != emit.device:
+            raise ValueError(f"{what}: {name} must be a contiguous float32 "
+                             f"tensor on {emit.device}")
+    if T < 1 or not 1 <= S <= MAX_STATES:
+        raise ValueError(f"{what}: T={T} must be >= 1 and S={S} within "
+                         f"1..{MAX_STATES}")
+
+
+def coverage_viterbi(emit: torch.Tensor, logA: torch.Tensor,
+                     logpi: torch.Tensor) -> torch.Tensor:
+    """Viterbi labels (B, T) int8 of emissions (T, B, S) on emit's device:
+    the CUDA kernel for CUDA tensors (launched on the current stream, no
+    synchronisation), `_viterbi_plain` for CPU tensors; equal labels.  Each
+    launch appends (B, T, S) to `coverage_viterbi.shapes`."""
+    if emit.device.type == "cpu":
+        return _viterbi_plain(emit, logA, logpi)
+    if emit.device.type != "cuda":
+        raise ValueError(f"coverage_viterbi: unsupported device "
+                         f"{emit.device}")
+    from ..ops import cuda_build
+    _check_hmm_inputs("coverage_viterbi", emit, logA, logpi)
+    T, B, S = emit.shape
+    labels = torch.empty((B, T), dtype=torch.int8, device=emit.device)
+    if B == 0:
+        return labels
+    lib = cuda_build.lib("coverage_hmm")
+    n = lib.coverage_viterbi_scratch_bytes(B, T, S)
+    scratch = torch.empty(n, dtype=torch.uint8, device=emit.device) \
+        if n else None
+    with torch.cuda.device(emit.device):     # the launch goes to emit's card
+        rc = lib.coverage_viterbi_launch(
+            emit.data_ptr(), logA.data_ptr(), logpi.data_ptr(), B, T, S,
+            scratch.data_ptr() if scratch is not None else None,
+            labels.data_ptr(),
+            torch.cuda.current_stream(emit.device).cuda_stream)
+    cuda_build.check(rc, "coverage_viterbi launch", "coverage_hmm")
+    coverage_viterbi.launches += 1
+    coverage_viterbi.shapes.append((B, T, S))
+    return labels
+
+
+coverage_viterbi.launches = 0
+coverage_viterbi.shapes = []
+
+
+def coverage_posteriors(emit: torch.Tensor, logA: torch.Tensor,
+                        logpi: torch.Tensor) -> torch.Tensor:
+    """Forward-backward posteriors (T, B, S) float32 of emissions (T, B, S)
+    on emit's device: the CUDA kernel for CUDA tensors (launched on the
+    current stream, no synchronisation), `_posteriors_plain` for CPU
+    tensors; they agree within float32 rounding.  Each launch appends
+    (B, T, S) to `coverage_posteriors.shapes`."""
+    if emit.device.type == "cpu":
+        return _posteriors_plain(emit, logA, logpi)
+    if emit.device.type != "cuda":
+        raise ValueError(f"coverage_posteriors: unsupported device "
+                         f"{emit.device}")
+    from ..ops import cuda_build
+    _check_hmm_inputs("coverage_posteriors", emit, logA, logpi)
+    T, B, S = emit.shape
+    out = torch.empty((T, B, S), dtype=torch.float32, device=emit.device)
+    if B == 0:
+        return out
+    with torch.cuda.device(emit.device):     # the launch goes to emit's card
+        rc = cuda_build.lib("coverage_hmm").coverage_posteriors_launch(
+            emit.data_ptr(), logA.data_ptr(), logpi.data_ptr(), B, T, S,
+            out.data_ptr(),
+            torch.cuda.current_stream(emit.device).cuda_stream)
+    cuda_build.check(rc, "coverage_posteriors launch", "coverage_hmm")
+    coverage_posteriors.launches += 1
+    coverage_posteriors.shapes.append((B, T, S))
+    return out
+
+
+coverage_posteriors.launches = 0
+coverage_posteriors.shapes = []
 
 def _log_sum_exp(x: np.ndarray, axis: int) -> np.ndarray:
     m = x.max(axis=axis, keepdims=True)
