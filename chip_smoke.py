@@ -57,9 +57,10 @@ Phase 4  `asm --device cuda` (pileup with pair-HMM realignment, MEC
          1/1500, HiFi reads at 30x, 9 kb: the golden recipe's coverage and
          read length), then `vc-large-indel --device cuda` on its
          `final_contigs.fa` with the same reads, and the port's `eval`:
-         recall >= 0.8 and precision >= 0.7, and both kernels launched
-         during `asm`.  The stage times, the DP launches by (mode, design,
-         B, M, W) and the calls of the torch-op device functions are
+         recall >= 0.8 and precision >= 0.7; the DP, the walk and the
+         three k-mer kernels (csrc/kmer.cu: count, unique mask, vote)
+         launched during `asm`.  The stage times, the DP launches by (mode,
+         design, B, M, W) and the calls of the watched functions are
          listed.  A user's chromosome is 50-250 Mb; the k-mer tables
          (4^12 int32 each, up to 8 resident) are at full size at any
          length.  With --profile the `asm` run is traced too.
@@ -73,14 +74,23 @@ Phase 4b `asm` with `--device cuda` and with `--device cpu` on the
          in each.  Then the pair-HMM kernel (csrc/pairhmm.cu) against its
          plain version on the card and on the CPU, fp32 scores bit-equal:
          at the path's shape (8192 pairs, R = 57, W = 41, error 0.002 and
-         0.1; timed beside its bound) and at edge batches (1 and 37 pairs,
-         empty and full segments, all-N windows, W 9 and 200).  Then each
-         torch-op device function of the path on the card against the
-         CPU, timed on both beside its bound: the MEC votes (8 restarts on
-         phase 4's largest
-         observation set), the k-mer hashes and count of one table-build
-         chunk, the unique mask of four tables, and the distinct runs and
-         4-way vote of one chunk of 64 reads (phase 4's own inputs; equal).
+         0.1; timed beside its bound), at edge batches (1 and 37 pairs,
+         empty and full segments, all-N windows, W 9 and 200) and at the
+         block design's windows (W 1025, 2048 timed, and 4096, whose rows
+         exceed shared memory, at 300 pairs of 64 rows and 4 of 4112).
+         Then the MEC votes, still torch ops, on the card against the CPU
+         (8 restarts on phase 4's largest observation set), timed on both
+         beside its bound.  Then the three k-mer kernels against their
+         plain versions on the card and on the CPU, exactly equal, at
+         phase 4's own inputs (the largest table-build chunk, the unique
+         mask of four tables, the largest vote chunk of 64 reads), each
+         timed beside its bound (the count also beside one `index_add_` of
+         its prepared index and weights), then at edge cases for k 6 and
+         12: a stream counted in chunks across seams, rows with lengths,
+         and vote chunks with empty, all-N, homopolymer and N-run rows, the
+         partition's two-zero-table layout and a 120 kb read in a
+         2^17-column chunk, whose unique windows overflow the vote's
+         shared memory.
 Phase 5  `run --device cuda` (reads -> asm -> the large-indel, small-indel
          and complex-SV callers -> merged VCF) on the golden recipe of
          tests/test_golden_e2e.py (4 x 250 kb, every SV type, a
@@ -90,11 +100,18 @@ Phase 5  `run --device cuda` (reads -> asm -> the large-indel, small-indel
          the port's eval: SV F1 and recall >= 0.99, GT >= 0.98, small-indel
          recall >= 0.93, precision >= 0.95 and GT >= 0.90, SNP recall,
          precision and zygosity >= 0.95, switch error <= 0.02, the
-         translocation as a 1|1 reciprocal BND pair.  Stage times, the DP
+         translocation as a 1|1 reciprocal BND pair.  The sim's ref.fa,
+         reads.fastq and truth.vcf and the run's six outputs must have the
+         sha256 and sizes pinned in tests/data/golden_run_sha256.json,
+         made from the JAX package on the CPU (tools/pin_golden_run.py):
+         the card's bytes are the JAX package's (a mismatch prints the
+         merged VCF's diff against tests/data/golden_variants.vcf and
+         raises).  Stage times, the DP
          launches by shape, and those made inside the complex-SV stage
          (counted around call_complex_svs), which must include the
-         haplotype pairing's edit distances at W = 128, and the pair-HMM
-         kernel's launches (76 at the golden recipe).  The run is traced
+         haplotype pairing's edit distances at W = 128, the pair-HMM
+         kernel's launches (76 at the golden recipe) and the k-mer
+         kernels'.  The run is traced
          on the card (torch.profiler) for the device's busy time; with
          --profile the host's ops too.
 Phase 5b `run` with `--device cuda` and with `--device cpu` on
@@ -139,7 +156,8 @@ launches, errors, times and bounds (each path's entry is checked and
 timed at the shape that path launched most: phase 1's row there, or a
 check made at that shape after the paths ran; `pairhmm_viterbi`'s
 launches are the golden `run`'s, `coverage_viterbi`'s and
-`coverage_posteriors`' those of `qc` and `asm --sd`), and the
+`coverage_posteriors`' those of `qc` and `asm --sd`, the k-mer
+kernels' the golden `run`'s, timed at phase 4's inputs), and the
 `{"ok": true, ...}` line.
 """
 from __future__ import annotations
@@ -201,12 +219,15 @@ EXPECTED_LAUNCHES = {"banded_dp": 17, "tb_walk": 15}
 def _wrappers() -> dict:
     """Every kernel wrapper of the port by its kernels-line name."""
     from volcanosv_tpu_torch.ops import banded_align as ba
+    from volcanosv_tpu_torch.ops import kmer
     from volcanosv_tpu_torch.phasing import realign
     from volcanosv_tpu_torch.qc import flagger
     return dict(banded_dp=ba.banded_dp, tb_walk=ba.tb_walk,
                 pairhmm_viterbi=realign._viterbi_batch,
                 coverage_viterbi=flagger.coverage_viterbi,
-                coverage_posteriors=flagger.coverage_posteriors)
+                coverage_posteriors=flagger.coverage_posteriors,
+                kmer_count=kmer.kmer_count_into,
+                unique_mask=kmer.unique_mask, kmer_vote=kmer.kmer_vote)
 
 
 def _reset_counts() -> None:
@@ -619,7 +640,7 @@ def _profile_summary(prof, wall_s: float) -> dict:
         by_name[e.key] = (by_name.get(e.key, (0.0, 0))[0] + us / 1e3,
                           by_name.get(e.key, (0.0, 0))[1] + e.count)
     busy = sum(v[0] for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
     return dict(busy_ms=busy, wall_s=wall_s,
                 busy_share=busy / (wall_s * 1e3),
                 kernels=[dict(name=k[:120], ms=v[0], count=v[1])
@@ -760,18 +781,18 @@ def phase3_cuda_vs_cpu(seed: int) -> None:
     _log(f"phase 3: VCFs byte-identical ({len(vcfs[0])} bytes)")
 
 
-# The asm path's torch-op device functions (the JAX package's jitted XLA
-# code without a kernel yet): module of the call site, attribute, and which
-# call's inputs phase 4b keeps (None: the first).  The kernels' wrappers
-# are not wrapped: they count their own launches.
+# The asm path's calls whose inputs phase 4b keeps: the torch-op device
+# function (the JAX package's jitted XLA code without a kernel yet) and the
+# k-mer kernels' wrappers where the partition calls them; module of the
+# call site, attribute, and which call's inputs are kept (None: the first).
+# The wrappers count their own launches; the wrapping only keeps inputs.
 WATCHED = (("phasing.phase", "_mec_phase",
             lambda args: args[0].numel()),       # the most observations
-           ("partition.partition", "kmer_hashes",
-            lambda args: args[0].shape[0] == 1 and args[0].numel()),
-           ("partition.partition", "count_kmers_dense", None),
+           ("partition.partition", "kmer_count_into",
+            lambda args: args[1].numel()),       # the largest chunk
            ("partition.partition", "unique_mask", None),
-           ("partition.partition", "distinct_runs", None),
-           ("partition.partition", "overlap_scores", None))
+           ("partition.partition", "kmer_vote",
+            lambda args: args[0].numel()))       # the widest read chunk
 # operations of one pair-HMM cell (phasing/realign.py::_viterbi_batch), the
 # least the recurrence needs: the match compare and the emission's select
 # (2); M: three transitions, their two maxes and the emission's add (6); I:
@@ -865,14 +886,17 @@ def phase4_asm(seed: int, profile: bool):
                 "tb_walk": ba.tb_walk.launches}
     dp_shapes = _dp_shapes(ba.banded_dp.shapes)
     walk_shapes = _walk_shapes(ba.tb_walk.shapes)
+    kmer_shapes = _kmer_shapes()
     stages = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
     if rc != 0:
         raise AssertionError(f"asm exited {rc}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("banded_dp", "tb_walk") + KMER_KERNELS:
+        if kernel_launches[name] <= 0:
             raise AssertionError(f"{name} never launched during asm")
     _log(f"phase 4: asm {asm_s:.1f} s, launches {kernel_launches}, "
-         f"torch-op device functions called {json.dumps(calls)}\n"
+         f"watched calls {json.dumps(calls)}\n"
+         f"phase 4: k-mer kernel launches by shape "
+         f"{json.dumps(kmer_shapes)}\n"
          f"phase 4: banded_dp launches by shape {json.dumps(dp_shapes)}\n"
          f"phase 4: tb_walk launches by shape {json.dumps(walk_shapes)}\n"
          + stage_report())
@@ -900,7 +924,7 @@ def phase4_asm(seed: int, profile: bool):
                 kernel_launches=kernel_launches,
                 stages=stages, device_function_calls=calls,
                 banded_dp_shapes=dp_shapes, tb_walk_shapes=walk_shapes,
-                profile=profile_info)
+                kmer_shapes=kmer_shapes, profile=profile_info)
     return info, kept
 
 
@@ -1058,6 +1082,303 @@ def _viterbi_rows(seed: int) -> list[dict]:
     return rows
 
 
+# the pair-HMM's block design (W > 1024): (B, R, W, timed); at W = 4096
+# the M, I and D rows (12 * W bytes) exceed the block's shared memory and
+# go to a device scratch; 300 pairs stride over its 264 blocks
+VITERBI_WIDE = ((37, 1041, 1025, False), (16, 2064, 2048, True),
+                (300, 64, 4096, False), (4, 4112, 4096, False))
+
+
+def _viterbi_wide_rows(seed: int) -> list[dict]:
+    import numpy as np
+    rows = []
+    for B, R, W, timed in VITERBI_WIDE:
+        segs, lens, haps = _viterbi_pairs(np.random.default_rng(seed + W),
+                                          B, R, W, 0.1)
+        rows.append(_viterbi_row(f"W={W} B={B} R={R}", segs, lens, haps,
+                                 0.1, W, timed))
+    return rows
+
+
+# the k-mer kernels' kernels-line names (their wrappers in _wrappers())
+KMER_KERNELS = ("kmer_count", "unique_mask", "kmer_vote")
+# int32 operations of one window of the k-mer kernels (csrc/kmer.cu), the
+# least the function needs: the rolled hash (a shift, an or, an and), the
+# N test and its position, the validity compare (6); the count adds one
+# atomic a valid window, the vote H mask tests a valid window, then two (a
+# count and an append) a window unique to a table and two (a table read's
+# add and the run's first test) a distinct one
+KMER_OPS_PER_WINDOW = 6
+
+
+def _kmer_shapes() -> dict:
+    w = _wrappers()
+    return {"kmer_count": _shape_counts(w["kmer_count"].shapes,
+                                        ("B", "L", "k")),
+            "unique_mask": _shape_counts(w["unique_mask"].shapes,
+                                         ("H", "N")),
+            "kmer_vote": _shape_counts(w["kmer_vote"].shapes,
+                                       ("B", "L", "k", "H"))}
+
+
+def _kmer_vote_case(seed, k, long_row=False, zero_tables=False):
+    """tests/torch_inputs.py::kmer_vote_case, copied since the smoke run
+    imports no tests: (codes (16, L) int8, lens (16,) int32, tables (4, 4^k)
+    int32) — reads of four haplotypes of two genomes (SNPs at 1/150, hap 3
+    at 1/20) with 1% errors, then two empty rows, an all-N row, 1500 A
+    (table 0's homopolymer k-mer), an N run, a read that fills the row;
+    `long_row`: row 0 a 120 kb read of hap 2 (L = 2^17); `zero_tables`:
+    tables 2 and 3 zero."""
+    import numpy as np
+
+    from volcanosv_tpu_torch.ops.kmer import kmer_hashes_np
+    rng = np.random.default_rng(seed)
+
+    def snps(g, rate):
+        g = g.copy()
+        at = rng.random(len(g)) < rate
+        g[at] = (g[at] + rng.integers(1, 4, int(at.sum()))) % 4
+        return g
+
+    ga = rng.integers(0, 4, 8000).astype(np.int8)
+    gb = rng.integers(0, 4, 130_000 if long_row else 8000).astype(np.int8)
+    haps = [snps(ga, 1 / 150), snps(ga, 1 / 150), snps(gb, 1 / 150),
+            snps(gb, 1 / 20)]
+    tables = np.zeros((4, 4**k), np.int32)
+    for j, hp in enumerate(haps):
+        h, v = kmer_hashes_np(hp, k)
+        present = np.bincount(h[v], minlength=4**k) > 0
+        tables[j, present] = rng.integers(1, 16, int(present.sum()))
+    tables[0, 0] = 7
+    tables[1:, 0] = 0
+    if zero_tables:
+        tables[2:] = 0
+
+    def read(hp, n):
+        s0 = int(rng.integers(0, len(hp) - n + 1))
+        r = hp[s0:s0 + n].copy()
+        err = rng.random(n) < 0.01
+        r[err] = rng.integers(0, 4, int(err.sum()))
+        return r
+
+    rows = []
+    for i in range(10):
+        if long_row and i == 0:
+            rows.append(read(haps[2], 120_000))
+            continue
+        j = int(rng.integers(0, 4))
+        rows.append(read(haps[j], int(rng.integers(300, 4001))))
+    rows += [np.zeros(0, np.int8), np.zeros(0, np.int8),
+             np.full(2000, 4, np.int8), np.zeros(1500, np.int8)]
+    r = read(haps[1], 3000)
+    r[1000:1040] = 4
+    rows.append(r)
+    L = 512
+    while L < max(len(r) for r in rows):
+        L *= 2
+    rows.append(read(haps[0], min(L, len(haps[0]))))
+    codes = np.full((len(rows), L), 4, np.int8)
+    lens = np.zeros(len(rows), np.int32)
+    for i, r in enumerate(rows):
+        codes[i, :len(r)] = r
+        lens[i] = len(r)
+    return codes, lens, tables
+
+
+def _kmer_count_case(seed, k, chunk=4096):
+    """tests/torch_inputs.py::kmer_count_case, copied: a stream of reads
+    joined by N separators cut into chunks overlapping by k - 1."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    parts, n = [], 0
+    while n < 3 * chunk:
+        r = rng.integers(0, 4, int(rng.integers(5, 3001))).astype(np.int8)
+        r[rng.random(len(r)) < 0.01] = 4
+        parts += [r, np.full(1, 4, np.int8)]
+        n += len(r) + 1
+    stream = np.concatenate(parts)
+    step = chunk - (k - 1)
+    chunks = [stream[i:i + chunk] for i in range(0, len(stream), step)
+              if len(stream[i:i + chunk]) >= k]
+    return stream, chunks
+
+
+def _kmer_count_bound(codes, k: int, lens=None) -> dict:
+    """Bound of one kmer_count_into call on these inputs: the codes (and
+    lengths) read once; each 32-byte sector of the table that a valid
+    window hits read and written once (the atomics' least traffic); six
+    ops a window and one add a valid window."""
+    import torch
+
+    from volcanosv_tpu_torch.ops import kmer
+    h, v = kmer._valid_windows(codes, k, lens)
+    hv = h[v]
+    sectors = int(torch.unique(hv >> 3).numel())
+    n_bytes = codes.numel() + (4 * lens.numel() if lens is not None else 0) \
+        + 2 * 32 * sectors
+    return dict(_bound(n_bytes, h.numel() * KMER_OPS_PER_WINDOW + hv.numel()),
+                windows=int(h.numel()), valid=int(hv.numel()),
+                sectors=sectors)
+
+
+def _kmer_vote_bound(codes, lens, k: int, tables, unique) -> dict:
+    """Bound of one kmer_vote call on these inputs: the codes and lengths
+    read once, the H mask bytes of each valid window, a table count of
+    each distinct unique k-mer, the (B, H) votes written; the ops of
+    KMER_OPS_PER_WINDOW's note."""
+    import torch
+
+    from volcanosv_tpu_torch.ops import kmer
+    h, v = kmer._valid_windows(codes, k, lens)
+    x = h[v].to(torch.int64)
+    H = tables.shape[0]
+    hit = unique[:, x].any(dim=0)
+    n_unique = int(hit.sum())
+    distinct = int(torch.unique(x[hit]).numel())
+    B = codes.shape[0]
+    n_bytes = codes.numel() + 4 * B + H * x.numel() + 4 * distinct + 4 * B * H
+    ops = h.numel() * KMER_OPS_PER_WINDOW + H * x.numel() + 2 * n_unique \
+        + 2 * distinct
+    return dict(_bound(n_bytes, ops), windows=int(h.numel()),
+                valid=int(x.numel()), unique_windows=n_unique,
+                distinct=distinct)
+
+
+def _kmer_check(name: str, fn, args_card, fresh=None) -> dict:
+    """`fn` (a k-mer wrapper) on the card's tensors (the kernel), the plain
+    version on the card and the wrapper on their CPU copies (the plain
+    version): all exactly equal.  `fresh(args)`: new arguments for each
+    call of a wrapper that updates one in place.  Returns the CPU time and
+    the outputs' size."""
+    import torch
+
+    from volcanosv_tpu_torch.ops import kmer
+    plain = {"kmer_count": kmer._kmer_count_plain,
+             "unique_mask": kmer._unique_mask_plain,
+             "kmer_vote": kmer._kmer_vote_plain}[name]
+    fresh = fresh or (lambda a: a)
+    args_cpu = [_on(a, "cpu") for a in args_card]
+    n0 = fn.launches
+    got = fn(*fresh(args_card))
+    torch.cuda.synchronize()
+    if fn.launches != n0 + 1:
+        raise AssertionError(f"phase 4b: {name} launched no kernel")
+    want_card = plain(*fresh(args_card)).cpu()
+    a = fresh(args_cpu)
+    t0 = time.perf_counter()
+    want = fn(*a)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    if not (_equal_tensors(got, want_card) and _equal_tensors(got, want)):
+        raise AssertionError(f"phase 4b: {name} kernel != plain")
+    return dict(equal=True, max_abs_err=0, cpu_ms=cpu_ms,
+                out=list(got.shape))
+
+
+def _kmer_rows(kept: dict) -> list[dict]:
+    """The three k-mer kernels at phase 4's kept inputs: exactly equal to
+    their plain versions (card and CPU), the kernel's device time a launch
+    (queued), the plain version's on the card (host launches included), the
+    CPU's, the bound and, for the count, one `index_add_` of the prepared
+    index and weights (the library call of the function)."""
+    import torch
+
+    from volcanosv_tpu_torch.ops import kmer
+    rows = []
+    (table, codes, k, *rest), _ = kept["kmer_count_into"]
+    lens = rest[0] if rest else None
+    zero = lambda a: [torch.zeros_like(a[0])] + list(a[1:])   # noqa: E731
+    args = [table, codes, k] + ([lens] if lens is not None else [])
+    row = _kmer_check("kmer_count", kmer.kmer_count_into, args, zero)
+    t = torch.zeros_like(table)
+    h, v = kmer._valid_windows(codes, k, lens)
+    idx, w = h.reshape(-1).to(torch.int64), v.reshape(-1).to(torch.int32)
+    row.update(
+        name="kmer_count", shape=list(codes.shape), k=k,
+        ms=_time_queued_ms(lambda: kmer.kmer_count_into(t, codes, k, lens)),
+        plain_ms=_time_calls_ms(
+            lambda: kmer._kmer_count_plain(t, codes, k, lens)),
+        library_ms=_time_queued_ms(lambda: t.index_add_(0, idx, w)),
+        **_kmer_count_bound(codes, k, lens))
+    rows.append(row)
+    (tables,), _ = kept["unique_mask"]
+    row = _kmer_check("unique_mask", kmer.unique_mask, [tables])
+    row.update(
+        name="unique_mask", shape=list(tables.shape),
+        ms=_time_queued_ms(lambda: kmer.unique_mask(tables)),
+        plain_ms=_time_calls_ms(lambda: kmer._unique_mask_plain(tables)),
+        library_ms=None,
+        **_bound(tables.numel() * 5, tables.numel() * 4))
+    rows.append(row)
+    (codes, lens, k, t4, u4), _ = kept["kmer_vote"]
+    row = _kmer_check("kmer_vote", kmer.kmer_vote, [codes, lens, k, t4, u4])
+    row.update(
+        name="kmer_vote", shape=list(codes.shape), k=k,
+        ms=_time_queued_ms(lambda: kmer.kmer_vote(codes, lens, k, t4, u4)),
+        plain_ms=_time_calls_ms(
+            lambda: kmer._kmer_vote_plain(codes, lens, k, t4, u4)),
+        library_ms=None, **_kmer_vote_bound(codes, lens, k, t4, u4))
+    rows.append(row)
+    for r in rows:
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        _log(f"phase 4b: k-mer kernel {json.dumps(r)}")
+    return rows
+
+
+def _kmer_edges() -> list[dict]:
+    """The k-mer kernels against their plain versions (card and CPU,
+    exactly equal) at k 6 and 12: a stream counted chunk by chunk across
+    the seams into one table (= the stream's count in one chunk), the vote
+    case's rows counted with their lengths, the unique mask and the vote
+    of the vote case, of its two-zero-table layout and of its 2^17-column
+    chunk with a 120 kb read (the vote's list in scratch)."""
+    import torch
+
+    from volcanosv_tpu_torch.ops import kmer
+    rows = []
+    for k in (6, 12):
+        stream, chunks = _kmer_count_case(k, k)
+        table = torch.zeros(4**k, dtype=torch.int32, device="cuda")
+        for c in chunks:
+            kmer.kmer_count_into(table, torch.from_numpy(c).cuda()[None], k)
+        whole = kmer._kmer_count_plain(
+            torch.zeros(4**k, dtype=torch.int32),
+            torch.from_numpy(stream)[None], k)
+        if not torch.equal(table.cpu(), whole):
+            raise AssertionError(f"phase 4b: kmer_count across chunk seams "
+                                 f"!= the whole stream's count at k={k}")
+        rows.append(dict(name="kmer_count", case="chunk seams", k=k,
+                         chunks=len(chunks), equal=True))
+        for case, kw in (("edge rows", {}),
+                         ("two zero tables", dict(zero_tables=True)),
+                         ("2^17 columns", dict(long_row=True))):
+            codes, lens, tables = (torch.from_numpy(x).cuda()
+                                   for x in _kmer_vote_case(k, k, **kw))
+            if not kw:
+                rows.append(dict(_kmer_check(
+                    "kmer_count", kmer.kmer_count_into,
+                    [torch.zeros(4**k, dtype=torch.int32, device="cuda"),
+                     codes, k, lens],
+                    lambda a: [torch.zeros_like(a[0])] + list(a[1:])),
+                    name="kmer_count", case="rows with lengths", k=k))
+            row = _kmer_check("unique_mask", kmer.unique_mask, [tables])
+            rows.append(dict(row, name="unique_mask", case=case, k=k))
+            u = kmer.unique_mask(tables)
+            row = _kmer_check("kmer_vote", kmer.kmer_vote,
+                              [codes, lens, k, tables, u])
+            # the 120 kb read's list: past the kernel's 8192 entries of
+            # shared memory (csrc/kmer.cu SMEM_KEYS) at k 12
+            first = _kmer_vote_bound(codes[:1], lens[:1], k, tables,
+                                     u)["unique_windows"]
+            if kw.get("long_row") and k == 12 and first <= 8192:
+                raise AssertionError("phase 4b: the 2^17-column vote case "
+                                     "does not overflow shared memory")
+            rows.append(dict(row, name="kmer_vote", case=case, k=k,
+                             L=codes.shape[1], first_row_unique=first))
+    for r in rows:
+        _log(f"phase 4b: k-mer edge {json.dumps(r)}")
+    return rows
+
+
 def _equal_tensors(got, want) -> bool:
     import torch
     if isinstance(want, torch.Tensor):
@@ -1129,11 +1450,10 @@ def _asm_cuda_vs_cpu(d: str, dtype: str, err: float) -> dict:
 def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
     """`asm` on cuda and cpu (byte-identical outputs), HiFi and CLR (where
     the pair-HMM kernel must launch), then the pair-HMM kernel against its
-    plain version (`_viterbi_rows`) and each torch-op device function of
-    the path, card against CPU, timed beside its bound."""
-    import math
-
-    from volcanosv_tpu_torch.ops import kmer
+    plain version (`_viterbi_rows`, `_viterbi_wide_rows`), the MEC votes
+    (torch ops) card against CPU, and the k-mer kernels against their
+    plain versions (`_kmer_rows`, `_kmer_edges`), each timed beside its
+    bound."""
     from volcanosv_tpu_torch.phasing import phase
     info = dict(hifi=_asm_cuda_vs_cpu(os.path.join(WORK, "asm_cuda_vs_cpu"),
                                       "Hifi", 0.001))
@@ -1145,7 +1465,7 @@ def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
     if info["clr"]["kernel_launches"]["pairhmm_viterbi"] <= 0:
         raise AssertionError("phase 4b: asm -d CLR launched no pair-HMM "
                              "kernel")
-    vrows = _viterbi_rows(seed)
+    vrows = _viterbi_rows(seed) + _viterbi_wide_rows(seed)
 
     rows = []
     args, kw = kept["_mec_phase"]
@@ -1166,42 +1486,8 @@ def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
         obs=n_obs, restarts=n_restarts, snps=S, reads=n_reads,
         n_iter=n_iter))
 
-    (codes, k), _ = kept["kmer_hashes"]
-    n = codes.shape[1] - k + 1
-    rows.append(dict(_card_vs_cpu(
-        "kmer_hashes + count_kmers_dense",
-        lambda c: kmer.count_kmers_dense(*kmer.kmer_hashes(c, k), k),
-        [codes], _equal_tensors,
-        # per window: k steps of a shift, an and, an or, a compare and an
-        # or, then the bounds test, the weight and the add (4); codes in,
-        # the 4^k table out
-        _bound(codes.numel() + 4 * 4**k, n * (5 * k + 4))),
-        codes=int(codes.numel()), k=k))
-    (tables,), _ = kept["unique_mask"]
-    rows.append(dict(_card_vs_cpu(
-        "unique_mask", kmer.unique_mask, [tables], _equal_tensors,
-        # per entry: the presence compare, its add into the count, the
-        # count compare and the and
-        _bound(tables.numel() * 5, tables.numel() * 4)),
-        tables=list(tables.shape)))
-    (h, v), _ = kept["distinct_runs"]
-    (_s, _f, _r, t4, u4), _ = kept["overlap_scores"]
-    Bk, nk = h.shape
-    s_, first, _run = kmer.distinct_runs(h, v)
-    n_distinct = int(first.sum())
-    H = t4.shape[0]
-    # the sort's compares (n log2 n a row), the first-occurrence and run
-    # length passes (8 an entry), and per distinct k-mer and table the
-    # gathered count and flag (5 bytes) and the select and add (3)
-    ops = Bk * nk * math.ceil(math.log2(nk)) + 8 * Bk * nk \
-        + 3 * H * n_distinct
-    n_bytes = 5 * Bk * nk + 5 * H * n_distinct + 4 * Bk * H
-    rows.append(dict(_card_vs_cpu(
-        "distinct_runs + overlap_scores",
-        lambda hh, vv, tt, uu: kmer.overlap_scores(
-            *kmer.distinct_runs(hh, vv), tt, uu),
-        [h, v, t4, u4], _equal_tensors, _bound(n_bytes, ops)),
-        B=Bk, n=nk, distinct=n_distinct, tables=H))
+    info["kmer"] = _kmer_rows(kept)
+    info["kmer_edges"] = _kmer_edges()
     info["device_functions"] = rows
     info["pairhmm_viterbi"] = vrows
     return info
@@ -1216,6 +1502,10 @@ GOLDEN_SIM = ["--length", "250000", "--chroms", "4",
               "--n_tra", "1", "--coverage", "30", "--read_len", "9000",
               "--seed", "42"]
 GOLDEN_TRUTH = os.path.join(REPO, "tests", "data", "golden_truth.vcf")
+# the JAX package's golden sim inputs and `run` outputs: sha256 and sizes
+# (tools/pin_golden_run.py, on the CPU), and its merged VCF for a diff
+GOLDEN_PIN = os.path.join(REPO, "tests", "data", "golden_run_sha256.json")
+GOLDEN_VARIANTS = os.path.join(REPO, "tests", "data", "golden_variants.vcf")
 # tests/test_torch_run.py's recipe: 2 x 50 kb with an INV, a DUP, a
 # translocation and small indels, so every caller writes records
 RUN_SIM = ["--length", "50000", "--chroms", "2", "--n_del", "2",
@@ -1307,6 +1597,38 @@ def _golden_gates(sim_dir: str, out: str, device: str = "cuda") -> dict:
     return gates
 
 
+def _check_golden_pin(sim_dir: str, out: str) -> dict:
+    """The golden sim's inputs and the card's six `run` outputs against the
+    JAX package's pinned sha256 and sizes; on a mismatch the merged VCF's
+    diff against the pinned copy is printed, then it raises."""
+    import difflib
+    import hashlib
+    with open(GOLDEN_PIN) as fh:
+        pin = json.load(fh)
+    if pin["sim_args"] != GOLDEN_SIM:
+        raise AssertionError("phase 5: the pin's sim arguments are not "
+                             "GOLDEN_SIM")
+    bad = []
+    for group, d in (("sim", sim_dir), ("run", out)):
+        for name, want in pin[group].items():
+            with open(os.path.join(d, name), "rb") as fh:
+                data = fh.read()
+            got = {"sha256": hashlib.sha256(data).hexdigest(),
+                   "bytes": len(data)}
+            if got != want:
+                bad.append(dict(file=name, got=got, want=want))
+    if bad:
+        with open(GOLDEN_VARIANTS) as a, \
+                open(os.path.join(out, "volcanosv_variants.vcf")) as b:
+            diff = list(difflib.unified_diff(
+                a.readlines(), b.readlines(), "jax", "card", n=0))
+        _log("phase 5: merged VCF against the JAX package's:\n"
+             + "".join(diff[:200]))
+        raise AssertionError(f"phase 5: the golden bytes differ from the "
+                             f"JAX package's pin: {json.dumps(bad)}")
+    return {"files": len(pin["sim"]) + len(pin["run"]), "equal": True}
+
+
 def phase5_run_golden(profile: bool) -> dict:
     """`sim` with the golden recipe (its truth must be the pinned
     tests/data/golden_truth.vcf), `run --device cuda`, traced on the card
@@ -1354,12 +1676,17 @@ def phase5_run_golden(profile: bool) -> dict:
     launches = {"banded_dp": ba.banded_dp.launches,
                 "tb_walk": ba.tb_walk.launches,
                 "pairhmm_viterbi": kernel_launches["pairhmm_viterbi"]}
+    launches.update({k: kernel_launches[k] for k in KMER_KERNELS})
     dp_shapes = _dp_shapes(ba.banded_dp.shapes)
     walk_shapes = _walk_shapes(ba.tb_walk.shapes)
+    kmer_shapes = _kmer_shapes()
     cx_shapes = _dp_shapes(complex_shapes)
     stages = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
     if rc != 0:
         raise AssertionError(f"phase 5: run exited {rc}")
+    pinned = _check_golden_pin(sim_dir, out)
+    _log(f"phase 5: the sim's inputs and run's six outputs are the JAX "
+         f"package's pinned bytes {json.dumps(pinned)}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"phase 5: {name} never launched in run")
@@ -1371,6 +1698,8 @@ def phase5_run_golden(profile: bool) -> dict:
     _log(f"phase 5: run {run_s:.1f} s, launches {kernel_launches}\n"
          f"phase 5: pairhmm_viterbi launches by shape "
          f"{json.dumps(pairhmm_shapes)}\n"
+         f"phase 5: k-mer kernel launches by shape "
+         f"{json.dumps(kmer_shapes)}\n"
          f"phase 5: banded_dp launches by shape {json.dumps(dp_shapes)}\n"
          f"phase 5: tb_walk launches by shape {json.dumps(walk_shapes)}\n"
          f"phase 5: banded_dp launches inside complex-sv "
@@ -1383,6 +1712,7 @@ def phase5_run_golden(profile: bool) -> dict:
     return dict(run_s=run_s, sim_s=sim_s, stages=stages, launches=launches,
                 kernel_launches=kernel_launches,
                 pairhmm_viterbi_shapes=pairhmm_shapes,
+                kmer_shapes=kmer_shapes, pinned=pinned,
                 busy_ms=profile_info["busy_ms"],
                 banded_dp_shapes=dp_shapes, tb_walk_shapes=walk_shapes,
                 complex_sv_shapes=cx_shapes,
@@ -1978,6 +2308,34 @@ def _scan_kernel_entries(info: dict, rng) -> list[dict]:
     return entries
 
 
+def _kmer_kernel_entries(info: dict) -> list[dict]:
+    """The kernels-line entries of the three k-mer kernels: launches on the
+    golden `run` (phase 5) and on `asm` (phase 4), checked and timed at
+    phase 4's kept inputs (4b), the error the largest over those and the
+    edge cases (exact: 0)."""
+    src = dict(route="cuda", source="volcanosv_tpu_torch/csrc/kmer.cu")
+    replaces = {"kmer_count": "volcanosv_tpu/ops/kmer.py:45",
+                "unique_mask": "volcanosv_tpu/ops/kmer.py:89",
+                "kmer_vote": "volcanosv_tpu/ops/kmer.py:100"}
+    rows = info["asm_cuda_vs_cpu"]["kmer"]
+    edges = info["asm_cuda_vs_cpu"]["kmer_edges"]
+    entries = []
+    for row in rows:
+        name = row["name"]
+        mine = [e for e in edges if e["name"] == name]
+        entries.append(dict(
+            name=name, **src, replaces=replaces[name],
+            path="run (golden sim)",
+            launches=info["run"]["kernel_launches"][name],
+            launches_asm=info["asm"]["kernel_launches"][name],
+            max_abs_err=max([row["max_abs_err"]] + [e.get("max_abs_err", 0)
+                                                    for e in mine]),
+            ms=row["ms"], plain_ms=row["plain_ms"], cpu_ms=row["cpu_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"], shapes=[row] + mine))
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2134,6 +2492,7 @@ def main() -> int:
             bound_ms=walk["bound_ms"], bound_by=walk["bound_by"],
             library_ms=None, shapes=[walk]))
     kernels += _scan_kernel_entries(info, rng)
+    kernels += _kmer_kernel_entries(info)
     print(json.dumps(info))
     print(smi)
     print(json.dumps({"kernels": kernels}))

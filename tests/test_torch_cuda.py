@@ -17,17 +17,25 @@ tracebacks with long gaps and on random tracebacks, at the bucketed, the
 full and a cut step bound: packed streams and done flags bit-equal.
 
 The pair-HMM Viterbi kernel (csrc/pairhmm.cu) is held to its plain
-version on the card over batches of 1 to 8192 pairs, W 9 to 1024 and
-three error rates: fp32 scores bit-equal (tolerance 0).  The coverage
+version on the card over batches of 1 to 8192 pairs, W 9 to 1024 (a warp
+a pair) and 1025 to 4096 (a block a pair, the rows in shared memory or,
+at 4096, in a device scratch), and three error rates: fp32 scores
+bit-equal (tolerance 0).  The coverage
 HMM's kernels (csrc/coverage_hmm.cu) are held to theirs over S 3-5 and
 T 1, 2 and 4970 on ragged, tie-rich batches: labels equal; posteriors no
 further from a float64 forward-backward than 1e-5 or twice the CPU plain
 version's distance (float32 sums of thousands of windows round at
 |alpha| x 6e-8, and the card's exp and log round differently).
 
-The `asm` path's torch-op device functions (the MEC votes, the k-mer ops)
-run the same ops on the card as on the CPU: their outputs on the card
-equal the CPU's."""
+The k-mer kernels (csrc/kmer.cu: count, unique mask, vote) are held to
+their plain versions at k 6 and 12 on tests/torch_inputs.py's cases: a
+stream counted chunk by chunk across the seams, rows with lengths, vote
+chunks with empty, all-N, homopolymer and N-run rows, two zero tables,
+and a 120 kb read in a 2^17-column chunk: integers, equal exactly.
+
+The `asm` path's torch-op device functions (the MEC votes, the k-mer ops
+the kernels replaced) run the same ops on the card as on the CPU: their
+outputs on the card equal the CPU's."""
 import numpy as np
 import pytest
 import torch
@@ -36,8 +44,8 @@ from volcanosv_tpu_torch.ops import banded_align as ba
 from volcanosv_tpu_torch.ops import kmer
 from volcanosv_tpu_torch.phasing import phase, realign
 from volcanosv_tpu_torch.qc import flagger
-from torch_inputs import (VITERBI_EDGES, hmm_tie_case, viterbi_edge_case,
-                          viterbi_pairs)
+from torch_inputs import (VITERBI_EDGES, hmm_tie_case, kmer_count_case,
+                          kmer_vote_case, viterbi_edge_case, viterbi_pairs)
 
 DUAL = ba.Scores(match=2, mismatch=-4, gap_open=-4, gap_extend=-2,
                  gap_open2=-24, gap_extend2=-1)
@@ -447,6 +455,18 @@ def test_pairhmm_kernel_edge_batches(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,R,W", [(37, 1041, 1025), (16, 2064, 2048),
+                                   (300, 64, 4096), (4, 4112, 4096)])
+def test_pairhmm_block_design_matches_plain(cuda, B, R, W):
+    """Windows past the warp design's 1024 columns: a block a pair, the
+    rows in shared memory (1025, 2048) or in a device scratch (4096; 300
+    pairs stride over the scratch's blocks)."""
+    segs, lens, haps = viterbi_pairs(np.random.default_rng(W + B), B, R, W,
+                                     0.1)
+    _check_viterbi_kernel(cuda, segs, lens, haps, 0.1, W)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T", [1, 2, 4970])
 @pytest.mark.parametrize("n_states", [3, 4, 5])
 def test_coverage_kernels_match_plain(cuda, n_states, T):
@@ -485,8 +505,8 @@ def test_scan_kernel_wrappers_reject_bad_inputs(cuda):
            (segs, lens, haps[:, :8], kw),                   # W mismatch
            (segs.T.contiguous().T, lens, haps, kw),          # strided
            (segs, lens[:3], haps, kw),
-           (segs, lens, torch.zeros((4, 1025), dtype=torch.int8,
-                                    device=cuda), _viterbi_kw(0.1, 1025))]
+           (segs, lens, torch.zeros((4, 0), dtype=torch.int8,
+                                    device=cuda), _viterbi_kw(0.1, 0))]
     for s, ln, h, k in bad:
         with pytest.raises(ValueError):
             realign._viterbi_batch(s, ln, h, **k)
@@ -554,6 +574,87 @@ def test_kmer_ops_card_equal_cpu(cuda, k):
     for g, w in zip(out[str(cuda)], out["cpu"]):
         assert g.dtype == w.dtype
         assert torch.equal(g, w)
+
+
+def _launched(fn, call):
+    n = fn.launches
+    out = call()
+    torch.cuda.synchronize()
+    assert fn.launches == n + 1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [6, 12])
+def test_kmer_count_kernel_matches_plain(cuda, k):
+    """A stream counted chunk by chunk across the seams into one table
+    (one launch a chunk) = the plain count of the whole stream; rows with
+    lengths added to a table that already holds counts = the plain
+    version's."""
+    stream, chunks = kmer_count_case(k, k)
+    table = torch.zeros(4**k, dtype=torch.int32, device=cuda)
+    for c in chunks:
+        _launched(kmer.kmer_count_into, lambda: kmer.kmer_count_into(
+            table, torch.from_numpy(c).to(cuda)[None], k))
+    want = kmer._kmer_count_plain(torch.zeros(4**k, dtype=torch.int32),
+                                  torch.from_numpy(stream)[None], k)
+    assert torch.equal(table.cpu(), want)
+    codes, lens, _ = kmer_vote_case(k + 1, k)
+    lens[3] = k - 1
+    base = torch.from_numpy(
+        np.random.default_rng(k).integers(0, 3, 4**k).astype(np.int32))
+    c, ln = torch.from_numpy(codes).to(cuda), torch.from_numpy(lens).to(cuda)
+    got = _launched(kmer.kmer_count_into, lambda: kmer.kmer_count_into(
+        base.to(cuda), c, k, ln))
+    assert torch.equal(got.cpu(), kmer._kmer_count_plain(
+        base.clone(), c.cpu(), k, ln.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["edge_rows", "zero_tables", "long_row"])
+@pytest.mark.parametrize("k", [6, 12])
+def test_kmer_unique_mask_and_vote_kernels_match_plain(cuda, k, case):
+    """The unique mask of four tables and the vote of 16 reads with the
+    edge rows, of the single-block layout (two zero tables), and of a
+    2^17-column chunk whose 120 kb read (at k 12) overflows the vote's
+    shared memory: equal to the plain versions on the card and on the
+    CPU."""
+    codes, lens, tables = kmer_vote_case(
+        k, k, long_row=case == "long_row", zero_tables=case == "zero_tables")
+    c, ln, t = (torch.from_numpy(x).to(cuda) for x in (codes, lens, tables))
+    u = _launched(kmer.unique_mask, lambda: kmer.unique_mask(t))
+    assert u.dtype == torch.bool
+    assert torch.equal(u, kmer._unique_mask_plain(t))
+    got = _launched(kmer.kmer_vote, lambda: kmer.kmer_vote(c, ln, k, t, u))
+    assert got.dtype == torch.int32 and got.shape == (16, 4)
+    assert torch.equal(got, kmer._kmer_vote_plain(c, ln, k, t, u))
+    assert torch.equal(got.cpu(), kmer.kmer_vote(
+        *(x.cpu() for x in (c, ln)), k, t.cpu(), u.cpu()))
+    if case == "long_row" and k == 12:
+        h, v = kmer._valid_windows(c[:1], k, ln[:1])
+        assert u[:, h[v].long()].any(dim=0).sum() > 8192
+
+
+@pytest.mark.cuda
+def test_kmer_kernel_wrappers_reject_bad_inputs(cuda):
+    codes, lens, tables = kmer_vote_case(4, 6)
+    c, ln, t = (torch.from_numpy(x).to(cuda) for x in (codes, lens, tables))
+    u = kmer.unique_mask(t)
+    table = torch.zeros(4**6, dtype=torch.int32, device=cuda)
+    for args in ((table.cpu(), c, 6, None), (table, c, 6, ln.cpu()),
+                 (table, c.int(), 6, None), (table, c.T.contiguous().T, 6,
+                                             None),
+                 (table, c, 16, None), (table[:-1], c, 6, None)):
+        with pytest.raises(ValueError):
+            kmer.kmer_count_into(*args)
+    for bad in (t.long(), t.T.contiguous().T):
+        with pytest.raises(ValueError):
+            kmer.unique_mask(bad)
+    for args in ((c, ln, 6, t, u.cpu()), (c, ln, 6, t.cpu(), u),
+                 (c, ln.long(), 6, t, u), (c, ln, 0, t, u),
+                 (c, ln, 6, t, u.to(torch.uint8)), (c, ln[:3], 6, t, u)):
+        with pytest.raises(ValueError):
+            kmer.kmer_vote(*args)
 
 
 @pytest.mark.cuda

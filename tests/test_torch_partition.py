@@ -101,10 +101,14 @@ def test_flat_tables_chunk_seam(rng, monkeypatch):
 
 
 def test_read_hashes_match(rng):
+    """The vote's chunk of reads (`_read_codes`) hashed and clipped to the
+    reads' lengths as `kmer_vote` does: the JAX package's `_read_hashes`."""
     seqs = [_mk(rng, 100), _mk(rng, 50), "ACGTN" * 30]
-    h, v, n = pp._read_hashes(seqs, 8, torch.device("cpu"))
+    codes, lens, n = pp._read_codes(seqs, torch.device("cpu"))
+    h, v = kmer._valid_windows(codes, 8, lens)
     h_w, v_w, n_w = ref_pp._read_hashes(seqs, 8)
     assert n == n_w == 3 and h.shape[0] == pp._CHUNK
+    assert codes.dtype == torch.int8 and lens.dtype == torch.int32
     _eq(h, h_w)
     _eq(v, v_w)
 

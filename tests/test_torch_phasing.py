@@ -114,6 +114,34 @@ def test_viterbi_plain_bit_equal_on_edge_batches(case):
         got.view(np.int32))
 
 
+def test_pairhmm_alleles_match_at_flank_600(monkeypatch):
+    """`PhasingConfig(realign_flank=600)`'s window, W = 1201 (past the
+    card's warp design, which took W <= 1024): 200 read segments of up to
+    96 bases over the window's centre, from the REF or the ALT haplotype
+    (the centre base changed) with 5% substitutions; the allele calls equal
+    the JAX package's.  Both packages score in buckets of 128 pairs here
+    (4096 on the path) so that the CPU run takes seconds."""
+    monkeypatch.setattr(realign, "_BUCKET", 128)
+    monkeypatch.setattr(ref_realign, "_BUCKET", 128)
+    rng = np.random.default_rng(600)
+    N, R, W, mid = 200, 96, 1201, 600
+    haps = rng.integers(0, 4, (N, W)).astype(np.int8)
+    alt = haps.copy()
+    alt[:, mid] = (alt[:, mid] + 1) % 4
+    segs = np.full((N, R), 4, np.int8)
+    lens = rng.integers(0, R + 1, N).astype(np.int32)
+    for i in range(N):
+        s0 = mid - lens[i] // 2 + int(rng.integers(-3, 4))
+        seg = (haps if i % 2 else alt)[i, s0:s0 + lens[i]].copy()
+        mut = rng.random(len(seg)) < 0.05
+        seg[mut] = rng.integers(0, 4, int(mut.sum()))
+        segs[i, :len(seg)] = seg
+    got = realign.pairhmm_alleles(segs, lens, haps, alt, 0.05, device="cpu")
+    want = ref_realign.pairhmm_alleles(segs, lens, haps, alt, 0.05)
+    np.testing.assert_array_equal(got, want)
+    assert {-1, 1} <= set(got.tolist())
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_mec_phase_matches(seed):
     """(h, a, mec) of the best of 8 restarts, restarts 1-7 drawn through

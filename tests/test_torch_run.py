@@ -5,6 +5,8 @@ a translocation and small indels, so every caller writes records: the six
 outputs must be byte-identical, again after `run --resume` from the asm
 checkpoint.  The golden sim's run (tests/test_golden_e2e.py's SIM_ARGS) is
 the `slow` test: the JAX package's run alone takes minutes on the CPU."""
+import hashlib
+import json
 import os
 import shutil
 
@@ -157,13 +159,28 @@ def test_merge_vcf_byte_identical(runs):
     assert want.count(b"\n") > len(RUN_OUT)
 
 
+GOLDEN_PIN = os.path.join(os.path.dirname(__file__), "data",
+                          "golden_run_sha256.json")
+
+
+def _digest(path):
+    data = _read(path)
+    return {"sha256": hashlib.sha256(data).hexdigest(), "bytes": len(data)}
+
+
 @pytest.mark.slow
 def test_golden_run_byte_identical(tmp_path):
     """The round's north-star check: `sim` + `run` with the golden gate's
     SIM_ARGS (4 x 250 kb, 30x HiFi at 9 kb, every SV type, a translocation,
     small indels) by both packages, the port on the CPU: the merged VCFs
-    are byte-identical, and the port's sim is the pinned truth."""
+    are byte-identical, the port's sim is the pinned truth, and both
+    packages' sim inputs and six outputs have the digests pinned in
+    tests/data/golden_run_sha256.json (tools/pin_golden_run.py), which the
+    card's run (chip_smoke.py phase 5) is held to."""
     from test_golden_e2e import _FIXTURE, SIM_ARGS
+    with open(GOLDEN_PIN) as fh:
+        pin = json.load(fh)
+    assert pin["sim_args"] == SIM_ARGS
     for name, main, extra in (("jax", ref_main, []),
                               ("port", port_main, ["--device", "cpu"])):
         sim_dir = tmp_path / f"sim_{name}"
@@ -171,6 +188,10 @@ def test_golden_run_byte_identical(tmp_path):
         assert main(["run", "--ref", str(sim_dir / "ref.fa"),
                      "--fastq", str(sim_dir / "reads.fastq"),
                      "-o", str(tmp_path / name)] + extra) == 0
+        for f, want in pin["sim"].items():
+            assert _digest(sim_dir / f) == want, (name, f)
+        for f, want in pin["run"].items():
+            assert _digest(tmp_path / name / f) == want, (name, f)
     assert _read(tmp_path / "sim_port" / "truth.vcf") == _read(_FIXTURE)
     for name in RUN_OUT:
         assert _read(tmp_path / "port" / name) == \

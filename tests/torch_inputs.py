@@ -120,3 +120,95 @@ def ensure_reference_native_lib():
         "the JAX package's native library did not load: its build races "
         "parallel test workers (g++ writes the final .so path in place)")
     return lib
+
+
+# the k-mer partition kernels' inputs (chip_smoke.py holds copies of
+# kmer_vote_case and kmer_count_case, since the smoke run imports no tests)
+
+
+def kmer_vote_case(seed, k, long_row=False, zero_tables=False):
+    """A chunk of reads and four haplotype tables for the vote: (codes
+    (16, L) int8, lens (16,) int32, tables (4, 4^k) int32).
+
+    Haplotypes 0 and 1 are one 8 kb genome with SNPs at 1/150 each,
+    haplotypes 2 and 3 another (130 kb with `long_row`), with SNPs at 1/150
+    and 1/20.  Table j holds each k-mer of haplotype j at a random count
+    1-15, table 0 also the homopolymer k-mer (hash 0).  Rows 0-9 are reads
+    of 300-4000 bases from a random haplotype with 1% substitutions (row 0
+    with `long_row`: 120,000 bases of haplotype 2, whose windows unique to
+    table 2 overflow the vote's shared memory at k 12), then two empty
+    rows, an all-N row of 2000, 1500 A, a read with an N run, and a read
+    of min(L, 8000) bases of haplotype 0.  L is the partition's bucket,
+    pow2ceil(longest, 512).  `zero_tables`: tables 2 and 3 all zero, the
+    partition's layout for a single candidate block."""
+    from volcanosv_tpu_torch.ops.kmer import kmer_hashes_np
+    rng = np.random.default_rng(seed)
+
+    def snps(g, rate):
+        g = g.copy()
+        at = rng.random(len(g)) < rate
+        g[at] = (g[at] + rng.integers(1, 4, int(at.sum()))) % 4
+        return g
+
+    ga = rng.integers(0, 4, 8000).astype(np.int8)
+    gb = rng.integers(0, 4, 130_000 if long_row else 8000).astype(np.int8)
+    haps = [snps(ga, 1 / 150), snps(ga, 1 / 150), snps(gb, 1 / 150),
+            snps(gb, 1 / 20)]
+    tables = np.zeros((4, 4**k), np.int32)
+    for j, hp in enumerate(haps):
+        h, v = kmer_hashes_np(hp, k)
+        present = np.bincount(h[v], minlength=4**k) > 0
+        tables[j, present] = rng.integers(1, 16, int(present.sum()))
+    tables[0, 0] = 7
+    tables[1:, 0] = 0
+    if zero_tables:
+        tables[2:] = 0
+
+    def read(hp, n):
+        s0 = int(rng.integers(0, len(hp) - n + 1))
+        r = hp[s0:s0 + n].copy()
+        err = rng.random(n) < 0.01
+        r[err] = rng.integers(0, 4, int(err.sum()))
+        return r
+
+    rows = []
+    for i in range(10):
+        if long_row and i == 0:
+            rows.append(read(haps[2], 120_000))
+            continue
+        j = int(rng.integers(0, 4))
+        rows.append(read(haps[j], int(rng.integers(300, 4001))))
+    rows += [np.zeros(0, np.int8), np.zeros(0, np.int8),
+             np.full(2000, 4, np.int8), np.zeros(1500, np.int8)]
+    r = read(haps[1], 3000)
+    r[1000:1040] = 4
+    rows.append(r)
+    L = 512
+    while L < max(len(r) for r in rows):
+        L *= 2
+    rows.append(read(haps[0], min(L, len(haps[0]))))
+    codes = np.full((len(rows), L), 4, np.int8)
+    lens = np.zeros(len(rows), np.int32)
+    for i, r in enumerate(rows):
+        codes[i, :len(r)] = r
+        lens[i] = len(r)
+    return codes, lens, tables
+
+
+def kmer_count_case(seed, k, chunk=4096):
+    """A code stream of reads joined by single N separators, as
+    partition.py's build_hap_tables makes it (read lengths 5-3000, 1% N),
+    cut into chunks of `chunk` codes overlapping by k - 1, three chunks
+    and a short tail: (stream (n,) int8, [chunks])."""
+    rng = np.random.default_rng(seed)
+    parts, n = [], 0
+    while n < 3 * chunk:
+        r = rng.integers(0, 4, int(rng.integers(5, 3001))).astype(np.int8)
+        r[rng.random(len(r)) < 0.01] = 4
+        parts += [r, np.full(1, 4, np.int8)]
+        n += len(r) + 1
+    stream = np.concatenate(parts)
+    step = chunk - (k - 1)
+    chunks = [stream[i:i + chunk] for i in range(0, len(stream), step)
+              if len(stream[i:i + chunk]) >= k]
+    return stream, chunks

@@ -18,7 +18,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("banded_dp", "tb_walk", "pairhmm", "coverage_hmm")
+SOURCES = ("banded_dp", "tb_walk", "pairhmm", "coverage_hmm", "kmer")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -62,8 +62,10 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
         lib.smem_chase.argtypes = [ci, vp, vp]
         lib.smem_chase.restype = ci
     elif name == "pairhmm":
+        lib.pairhmm_scratch_bytes.argtypes = [ci, ci]
+        lib.pairhmm_scratch_bytes.restype = ctypes.c_longlong
         lib.pairhmm_viterbi_launch.argtypes = \
-            [vp] * 3 + [ci] * 3 + [cf] * 8 + [vp] * 2
+            [vp] * 3 + [ci] * 3 + [cf] * 8 + [vp] * 3
         lib.pairhmm_viterbi_launch.restype = ci
     elif name == "coverage_hmm":
         lib.coverage_viterbi_scratch_bytes.argtypes = [ci] * 3
@@ -73,6 +75,17 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
         lib.coverage_posteriors_launch.argtypes = \
             [vp] * 3 + [ci] * 3 + [vp] * 2
         lib.coverage_posteriors_launch.restype = ci
+    elif name == "kmer":
+        cl = ctypes.c_longlong
+        lib.kmer_count_launch.argtypes = [vp, vp] + [ci] * 3 + [vp, vp]
+        lib.kmer_count_launch.restype = ci
+        lib.unique_mask_launch.argtypes = [vp, ci, cl, vp, vp]
+        lib.unique_mask_launch.restype = ci
+        lib.kmer_vote_scratch_row.argtypes = [ci, ci]
+        lib.kmer_vote_scratch_row.restype = cl
+        lib.kmer_vote_launch.argtypes = \
+            [vp, vp] + [ci] * 3 + [vp, vp, ci, vp, cl, vp, vp]
+        lib.kmer_vote_launch.restype = ci
 
 
 def load_all() -> dict[str, ctypes.CDLL]:

@@ -1,18 +1,26 @@
-"""k-mer hashing and dense counting — torch integer ops on the caller's
-device.
+"""k-mer hashing, dense counting and the read vote of the k-mer partition.
 
 Replaces the reference's pure-Python hot loops (SURVEY.md §3.1):
   * HashSeq.py:74-117      — per-read k-mer integer hashing (k=12, joblib)
   * count_kmer_v1.py:32-146 — per-haplotype Counter-of-kmers map/reduce
 
-Design: 2-bit codes → rolling 2k-bit integer hashes as a sum of k shifted
-code vectors (static unroll over k), then dense 4^k count tables via
-scatter-add (`index_add_`).  k=12 → 4^12 = 16.7M int32 = 67MB, resident on
-the card; per-haplotype tables live on the device and the 4-way overlap
-vote of the read-partition stage
-(get_raw_kmer_overlap_count_unphased_est_pbs_v1.py) becomes gathers and
-sums.  Every function here is integer arithmetic, so the card, the CPU and
-the reference package's jitted versions give equal outputs.
+Design: 2-bit codes → rolling 2k-bit integer hashes, dense 4^k count
+tables (k=12 → 4^12 = 16.7M int32 = 67MB, resident on the card), and the
+4-way unique-k-mer overlap vote of the read-partition stage
+(get_raw_kmer_overlap_count_unphased_est_pbs_v1.py).  The partition calls
+three wrappers, each with a hand-written CUDA kernel (`csrc/kmer.cu`) for
+CUDA tensors and a plain torch version for CPU tensors:
+
+  * `kmer_count_into`  — hash + count of a chunk, into a table in place
+                         (plain: `kmer_hashes` + `count_kmers_dense`)
+  * `unique_mask`      — present in exactly one table
+  * `kmer_vote`        — hash + `distinct_runs` + `overlap_scores` of a
+                         chunk of reads
+
+`kmer_hashes`, `canonical_hashes`, `count_kmers_dense`, `distinct_runs`
+and `overlap_scores` are the JAX package's functions as torch ops.  Every
+function here is integer arithmetic, so the kernels, the plain versions
+and the reference package's jitted versions give equal outputs.
 """
 from __future__ import annotations
 
@@ -90,7 +98,7 @@ def count_kmers_dense(hashes: torch.Tensor, valid: torch.Tensor,
     return table.index_add_(0, torch.where(inside, flat, 0), w)
 
 
-def unique_mask(tables: torch.Tensor) -> torch.Tensor:
+def _unique_mask_plain(tables: torch.Tensor) -> torch.Tensor:
     """tables: (H, 4^k) counts for H haplotype DBs.  A k-mer is 'unique' to
     hap h if present in h and absent from all others
     (ref: get_unique_kmer at get_raw_kmer_overlap_count…py:57-71).
@@ -144,6 +152,155 @@ def overlap_scores(sorted_h: torch.Tensor, first: torch.Tensor,
     w = (first & (runlen > 0))[None, :, :]
     contrib = torch.where(u & w, runlen[None, :, :] + t, 0)
     return contrib.sum(dim=2, dtype=torch.int32).T.contiguous()
+
+
+def _valid_windows(codes: torch.Tensor, k: int, lens):
+    """`kmer_hashes` of codes with validity clipped to w < lens - k + 1
+    (where lens is given), as partition.py's `_read_hashes` clips it."""
+    h, v = kmer_hashes(codes, k)
+    if lens is not None:
+        idx = torch.arange(h.shape[1], device=codes.device)[None, :]
+        v = v & (idx < (lens.to(torch.int64)[:, None] - k + 1))
+    return h, v
+
+
+def _kmer_count_plain(table, codes, k, lens=None):
+    table += count_kmers_dense(*_valid_windows(codes, k, lens), k)
+    return table
+
+
+def _kmer_vote_plain(codes, lens, k, tables, unique):
+    h, v = _valid_windows(codes, k, lens)
+    return overlap_scores(*distinct_runs(h, v), tables, unique)
+
+
+def _check(name: str, specs, k: int | None = None) -> str:
+    """Raise ValueError unless every (label, tensor, dtype, dim) of specs is
+    a contiguous tensor of that dtype and rank on the first one's device,
+    and 1 <= k <= 15.  Returns the device type."""
+    if k is not None and not 1 <= k <= 15:
+        raise ValueError(f"{name}: k={k} outside 1..15")
+    dev = specs[0][1].device
+    for label, x, dt, dim in specs:
+        if not isinstance(x, torch.Tensor) or x.dtype != dt or \
+                x.dim() != dim or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name}: {label} must be a contiguous {dim}-d "
+                             f"{dt} tensor on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def kmer_count_into(table: torch.Tensor, codes: torch.Tensor, k: int,
+                    lens: torch.Tensor | None = None) -> torch.Tensor:
+    """table[h] += 1 for each valid window of codes, in place: (B, L) int8
+    codes (N = 4 invalid), optional (B,) int32 lengths (windows w <
+    lens[b] - k + 1), a (4^k,) int32 table.  The CUDA kernel
+    (`csrc/kmer.cu::kmer_count_kernel`, on the current stream) for CUDA
+    tensors, `_kmer_count_plain` for CPU tensors.  Returns the table.  Each
+    launch appends (B, L, k) to `kmer_count_into.shapes`."""
+    specs = [("table", table, torch.int32, 1), ("codes", codes, torch.int8, 2)]
+    if lens is not None:
+        specs.append(("lens", lens, torch.int32, 1))
+    dev = _check("kmer_count_into", specs, k)
+    B, L = codes.shape
+    if table.numel() != 4**k or lens is not None and lens.shape != (B,):
+        raise ValueError(f"kmer_count_into: table {tuple(table.shape)} or "
+                         f"lens shape is not (4^{k},), ({B},)")
+    if B == 0 or L < k:
+        return table
+    if dev == "cpu":
+        return _kmer_count_plain(table, codes, k, lens)
+    from . import cuda_build
+    with torch.cuda.device(codes.device):
+        rc = cuda_build.lib("kmer").kmer_count_launch(
+            codes.data_ptr(), lens.data_ptr() if lens is not None else None,
+            B, L, k, table.data_ptr(), _stream(codes))
+    cuda_build.check(rc, "kmer_count launch", "kmer")
+    kmer_count_into.launches += 1
+    kmer_count_into.shapes.append((B, L, k))
+    return table
+
+
+kmer_count_into.launches = 0
+kmer_count_into.shapes = []
+
+
+def unique_mask(tables: torch.Tensor) -> torch.Tensor:
+    """(H, 4^k) bool: present in exactly one of the (H, 4^k) int32 tables.
+    The CUDA kernel (`csrc/kmer.cu::unique_mask_kernel`, on the current
+    stream) for CUDA tensors, `_unique_mask_plain` for CPU tensors.  Each
+    launch appends (H, 4^k) to `unique_mask.shapes`."""
+    dev = _check("unique_mask", [("tables", tables, torch.int32, 2)])
+    if dev == "cpu":
+        return _unique_mask_plain(tables)
+    H, N = tables.shape
+    out = torch.empty((H, N), dtype=torch.bool, device=tables.device)
+    if H == 0 or N == 0:
+        return out
+    from . import cuda_build
+    with torch.cuda.device(tables.device):
+        rc = cuda_build.lib("kmer").unique_mask_launch(
+            tables.data_ptr(), H, N, out.data_ptr(), _stream(tables))
+    cuda_build.check(rc, "unique_mask launch", "kmer")
+    unique_mask.launches += 1
+    unique_mask.shapes.append((H, N))
+    return out
+
+
+unique_mask.launches = 0
+unique_mask.shapes = []
+
+
+def kmer_vote(codes: torch.Tensor, lens: torch.Tensor, k: int,
+              tables: torch.Tensor, unique: torch.Tensor) -> torch.Tensor:
+    """(B, H) int32 votes of a chunk of reads: score[b, j] = Σ over the
+    distinct valid k-mers x of read b with unique[j, x] of (count of x in
+    read b + tables[j, x]).  codes (B, L) int8, lens (B,) int32 (windows w
+    < lens[b] - k + 1, as `_read_hashes` clips them), tables (H, 4^k)
+    int32, unique (H, 4^k) bool.  The CUDA kernel
+    (`csrc/kmer.cu::kmer_vote_kernel`, on the current stream) for CUDA
+    tensors, `_kmer_vote_plain` for CPU tensors.  Each launch appends
+    (B, L, k, H) to `kmer_vote.shapes`."""
+    dev = _check("kmer_vote", [("codes", codes, torch.int8, 2),
+                               ("lens", lens, torch.int32, 1),
+                               ("tables", tables, torch.int32, 2),
+                               ("unique", unique, torch.bool, 2)], k)
+    B, L = codes.shape
+    H = tables.shape[0]
+    if lens.shape != (B,) or tables.shape != (H, 4**k) or \
+            unique.shape != tables.shape or not 1 <= H <= 32:
+        raise ValueError(f"kmer_vote: shapes {tuple(lens.shape)}, "
+                         f"{tuple(tables.shape)}, {tuple(unique.shape)} are "
+                         f"not ({B},), (H <= 32, 4^{k}), (H, 4^{k})")
+    out = torch.zeros((B, H), dtype=torch.int32, device=codes.device)
+    if B == 0 or L < k:
+        return out
+    if dev == "cpu":
+        return _kmer_vote_plain(codes, lens, k, tables, unique)
+    from . import cuda_build
+    lib = cuda_build.lib("kmer")
+    row = lib.kmer_vote_scratch_row(L, k)
+    scratch = torch.empty(B * row, dtype=torch.int32, device=codes.device) \
+        if row else None
+    with torch.cuda.device(codes.device):
+        rc = lib.kmer_vote_launch(
+            codes.data_ptr(), lens.data_ptr(), B, L, k, tables.data_ptr(),
+            unique.data_ptr(), H,
+            scratch.data_ptr() if scratch is not None else None, row,
+            out.data_ptr(), _stream(codes))
+    cuda_build.check(rc, "kmer_vote launch", "kmer")
+    kmer_vote.launches += 1
+    kmer_vote.shapes.append((B, L, k, H))
+    return out
+
+
+kmer_vote.launches = 0
+kmer_vote.shapes = []
 
 
 def count_kmers_dense_np(codes_list, k: int) -> np.ndarray:

@@ -23,7 +23,7 @@ import torch.distributed as dist
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops.banded_align import Scores, banded_dp
-from ..ops.kmer import count_kmers_dense, kmer_hashes
+from ..ops.kmer import kmer_count_into
 from .mesh import Mesh, all_gather_device, make_mesh
 
 
@@ -34,10 +34,8 @@ def sharded_align_step(q, t, qlen, tlen, *, W: int, d_lo: int, k: int,
     sum end_j]) of the local batch."""
     score, end_j, _tb, _r = banded_dp(q, t, qlen, tlen, W, d_lo, scores,
                                       with_traceback=False)
-    h, valid = kmer_hashes(q, k)
-    valid = valid & (torch.arange(h.shape[1], device=h.device)[None, :]
-                     < (qlen[:, None] - k + 1))
-    table = count_kmers_dense(h, valid, k)
+    table = kmer_count_into(
+        torch.zeros(4**k, dtype=torch.int32, device=q.device), q, k, qlen)
     local = torch.stack([score.sum(), score.max(), end_j.sum()]).to(
         torch.int32)
     return score, table, local

@@ -9,10 +9,11 @@ pure-Python string/Counter work:
 * each unphased read is routed to its 2 nearest phase blocks by interval
   distance (prepare_info_v1.py:95-133)
 * per-(block,hap) dense k-mer count tables (k=12 → 4^12 tables) are built
-  on the caller's torch device by `index_add_` (count_kmer_v1.py
+  on the caller's torch device by `kmer_count_into` (count_kmer_v1.py
   equivalent)
-* the 4-way unique-k-mer overlap vote runs as batched gathers over the
-  tables (get_raw_kmer_overlap…py:43-71); scores are L2-normalized, a
+* the 4-way unique-k-mer overlap vote runs as `unique_mask` over the
+  tables and one `kmer_vote` per chunk of reads
+  (get_raw_kmer_overlap…py:43-71); scores are L2-normalized, a
   global (1 - sig_level) quantile sets the confident-assignment cutoff:
   confident → argmax haplotype, else → both haplotypes of the argmax block
   (:156-182)
@@ -29,9 +30,8 @@ import torch
 
 from ..config import PartitionConfig
 from ..device import DEFAULT_DEVICE, resolve_device
-from ..ops.kmer import (count_kmers_dense, distinct_runs, kmer_hashes,
-                        overlap_scores, unique_mask)
-from ..ops.pack import encode_seq, pad_codes
+from ..ops.kmer import kmer_count_into, kmer_vote, unique_mask
+from ..ops.pack import CODE_N, encode_seq, pad_codes
 from ..utils.logging import get_logger
 
 log = get_logger("partition")
@@ -59,19 +59,17 @@ def _pow2ceil(n: int, lo: int = 512) -> int:
     return p
 
 
-def _read_hashes(seqs: list[str], k: int, device):
-    """Hashes of a chunk of reads on `device`, in the reference's fixed
-    (B=_CHUNK, L=pow2-bucket) shapes."""
+def _read_codes(seqs: list[str], device):
+    """Codes (B=_CHUNK, L=pow2-bucket) int8 and lengths (B,) int32 of a
+    chunk of reads on `device`, in the reference's fixed shapes
+    (`_read_hashes` there), and the number of real reads."""
     n_real = len(seqs)
     seqs = list(seqs) + [""] * (_CHUNK - n_real)      # pad batch dim
     codes = [encode_seq(s) for s in seqs]
     L = _pow2ceil(max((len(c) for c in codes), default=1))
     padded, lens = pad_codes(codes, pad_to=L)
-    h, v = kmer_hashes(torch.from_numpy(padded).to(device), k)
-    # clip validity to actual lengths (device-side; lens is host int array)
-    idx = torch.arange(h.shape[1], device=device)[None, :]
-    v = v & (idx < (torch.from_numpy(lens).to(device)[:, None] - k + 1))
-    return h, v, n_real
+    return (torch.from_numpy(padded).to(device),
+            torch.from_numpy(lens).to(device), n_real)
 
 
 _FLAT = 1 << 21      # codes per device launch for table building
@@ -84,10 +82,10 @@ def build_hap_tables(hap_read_seqs: dict[str, list[str]], k: int,
 
     Reads are concatenated into one code stream with single-N separators
     (windows spanning a boundary contain the N and are masked invalid), then
-    hashed/counted in fixed (1, _FLAT) chunks, as the reference does.
-    Tables stay device-resident (67MB each at k=12); accumulation is a
-    device add per chunk."""
-    from ..ops.pack import CODE_N
+    hashed/counted in chunks of _FLAT codes overlapping by k - 1, as the
+    reference does (it pads the last chunk with N, which counts nothing).
+    Tables stay device-resident (67MB each at k=12); each chunk is counted
+    into its table in place (`kmer_count_into`)."""
     device = resolve_device(device)
     sep = np.full(1, CODE_N, np.int8)
     out = {}
@@ -99,17 +97,12 @@ def build_hap_tables(hap_read_seqs: dict[str, list[str]], k: int,
             for s in seqs:
                 parts.append(encode_seq(s))
                 parts.append(sep)
-            flat = np.concatenate(parts)
+            flat = torch.from_numpy(np.concatenate(parts)).to(device)
             for i in range(0, len(flat), step):
                 chunk = flat[i:i + _FLAT]
                 if len(chunk) < k:
                     break
-                if len(chunk) < _FLAT:
-                    chunk = np.concatenate(
-                        [chunk, np.full(_FLAT - len(chunk), CODE_N, np.int8)])
-                h, v = kmer_hashes(
-                    torch.from_numpy(chunk[None, :]).to(device), k)
-                table = table + count_kmers_dense(h, v, k)
+                kmer_count_into(table, chunk[None, :], k)
         out[hap] = table
     return out
 
@@ -212,9 +205,8 @@ def partition_reads(
         for i in range(0, len(rnames), _CHUNK):
             chunk = rnames[i:i + _CHUNK]
             seqs = [unphased[r][0] for r in chunk]
-            h, v, n_real = _read_hashes(seqs, cfg.k, device)
-            s, first, runlen = distinct_runs(h, v)
-            sc = overlap_scores(s, first, runlen, t4_d, u_d).cpu().numpy()
+            codes, lens, n_real = _read_codes(seqs, device)
+            sc = kmer_vote(codes, lens, cfg.k, t4_d, u_d).cpu().numpy()
             all_scores.append(sc[:n_real])
             all_names.extend(chunk)
             all_haps.extend([haps] * len(chunk))

@@ -17,7 +17,8 @@ device: on the CPU `_viterbi_batch_plain`, a loop over read rows with the
 delete-chain linear recurrence solved by a running prefix-max (`cummax`)
 instead of a sequential column loop, so every row is a few elementwise ops
 over the whole batch; on the card the hand-written kernel
-`csrc/pairhmm.cu` (a warp per pair), or it raises.
+`csrc/pairhmm.cu` (a warp per pair up to W = 1024, a block per pair
+above), or it raises.
 
 Rounding: every product and sum is its own operation, in the order of the
 reference's jnp code, on fp32 operands (the constants are fp32 scalars,
@@ -90,10 +91,6 @@ def _viterbi_batch_plain(segs: torch.Tensor, seg_lens: torch.Tensor,
     return best
 
 
-# the kernel's widest window: 32 columns a lane (csrc/pairhmm.cu)
-MAX_W = 1024
-
-
 def _viterbi_batch(segs: torch.Tensor, seg_lens: torch.Tensor,
                    haps: torch.Tensor, *, W: int, log_match, log_mis,
                    log_ins, a_mm, a_gap, a_ext, a_back) -> torch.Tensor:
@@ -101,8 +98,8 @@ def _viterbi_batch(segs: torch.Tensor, seg_lens: torch.Tensor,
     windows → (B,) fp32 Viterbi scores on the inputs' device: the CUDA
     kernel for CUDA tensors (launched on the current stream, no
     synchronisation), `_viterbi_batch_plain` for CPU tensors; the two are
-    bit-equal.  On CUDA the inputs must be contiguous, 1 <= W <= MAX_W,
-    any R.  Each launch appends (B, R, W) to `_viterbi_batch.shapes`."""
+    bit-equal.  On CUDA the inputs must be contiguous, W >= 1, any R.
+    Each launch appends (B, R, W) to `_viterbi_batch.shapes`."""
     consts = dict(log_match=log_match, log_mis=log_mis, log_ins=log_ins,
                   a_mm=a_mm, a_gap=a_gap, a_ext=a_ext, a_back=a_back)
     if segs.device.type == "cpu":
@@ -121,20 +118,25 @@ def _viterbi_batch(segs: torch.Tensor, seg_lens: torch.Tensor,
         if x.dtype != dt or not x.is_contiguous() or x.device != segs.device:
             raise ValueError(f"_viterbi_batch: {name} must be a contiguous "
                              f"{dt} tensor on {segs.device}")
-    if not 1 <= W <= MAX_W:
-        raise ValueError(f"_viterbi_batch: W={W} outside 1..{MAX_W}")
+    if W < 1:
+        raise ValueError(f"_viterbi_batch: W={W} < 1")
     B, R = segs.shape
     out = torch.empty(B, dtype=torch.float32, device=segs.device)
     if B == 0:
         return out
+    lib = cuda_build.lib("pairhmm")
+    n = lib.pairhmm_scratch_bytes(B, W)
+    scratch = torch.empty(n, dtype=torch.uint8, device=segs.device) \
+        if n else None
     # the fp32 constants of the plain version (float64 rounded once)
     f32 = [float(np.float32(x)) for x in (
         log_match, log_mis, log_ins, np.log(0.25), a_mm, a_gap, a_ext,
         a_back)]
     with torch.cuda.device(segs.device):     # the launch goes to segs' card
-        rc = cuda_build.lib("pairhmm").pairhmm_viterbi_launch(
+        rc = lib.pairhmm_viterbi_launch(
             segs.data_ptr(), seg_lens.data_ptr(), haps.data_ptr(), B, R, W,
-            *f32, out.data_ptr(),
+            *f32, scratch.data_ptr() if scratch is not None else None,
+            out.data_ptr(),
             torch.cuda.current_stream(segs.device).cuda_stream)
     cuda_build.check(rc, "pairhmm_viterbi launch", "pairhmm")
     _viterbi_batch.launches += 1
