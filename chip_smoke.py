@@ -59,7 +59,8 @@ Phase 4  `asm --device cuda` (pileup with pair-HMM realignment, MEC
          `final_contigs.fa` with the same reads, and the port's `eval`:
          recall >= 0.8 and precision >= 0.7; the DP, the walk and the
          three k-mer kernels (csrc/kmer.cu: count, unique mask, vote)
-         launched during `asm`.  The stage times, the DP launches by (mode,
+         launched during `asm`, and the MEC kernel (csrc/mec.cu).  The
+         stage times, the DP launches by (mode,
          design, B, M, W) and the calls of the watched functions are
          listed.  A user's chromosome is 50-250 Mb; the k-mer tables
          (4^12 int32 each, up to 8 resident) are at full size at any
@@ -78,9 +79,23 @@ Phase 4b `asm` with `--device cuda` and with `--device cpu` on the
          empty and full segments, all-N windows, W 9 and 200) and at the
          block design's windows (W 1025, 2048 timed, and 4096, whose rows
          exceed shared memory, at 300 pairs of 64 rows and 4 of 4112).
-         Then the MEC votes, still torch ops, on the card against the CPU
-         (8 restarts on phase 4's largest observation set), timed on both
-         beside its bound.  Then the three k-mer kernels against their
+         Then the MEC kernel (csrc/mec.cu) against its plain version,
+         (h, a, mec) equal: at phase 4's largest observation set (8
+         restarts x 30 iterations; on the card and on the CPU; timed beside
+         its bound), at edge cases in both designs (n_iter 0, 1 and 30,
+         reads and SNPs without observations, every allele 0, one and no
+         observation, duplicates, restarts tied on the lowest MEC, a
+         shuffled order with an SV-marker column appended), at R + S just
+         inside and just past one block's shared memory, and at a
+         chromosome's scale (250 Mb, het SNPs 1 every 1.5 kb, 9 kb reads at
+         30x: 166,667 SNPs, 833,333 reads, about 5M observations; the grid
+         design, on the card only; timed beside its bound).  At phase 4's
+         set and at the chromosome, the phase stage's `_mec_solve` end to
+         end (host preparation, upload, kernels, results back) against the
+         same steps with the plain version, equal.  Then
+         canonical_hashes' kernel (csrc/kmer.cu) against its plain version
+         on 2^21 random int32 hashes at k 6, 12, 15 and 16, timed beside its
+         bound.  Then the three k-mer kernels against their
          plain versions on the card and on the CPU, exactly equal, at
          phase 4's own inputs (the largest table-build chunk, the unique
          mask of four tables, the largest vote chunk of 64 reads), each
@@ -110,8 +125,8 @@ Phase 5  `run --device cuda` (reads -> asm -> the large-indel, small-indel
          launches by shape, and those made inside the complex-SV stage
          (counted around call_complex_svs), which must include the
          haplotype pairing's edit distances at W = 128, the pair-HMM
-         kernel's launches (76 at the golden recipe) and the k-mer
-         kernels'.  The run is traced
+         kernel's launches (76 at the golden recipe), the k-mer
+         kernels' and the MEC kernel's.  The run is traced
          on the card (torch.profiler) for the device's busy time; with
          --profile the host's ops too.
 Phase 5b `run` with `--device cuda` and with `--device cpu` on
@@ -156,8 +171,9 @@ launches, errors, times and bounds (each path's entry is checked and
 timed at the shape that path launched most: phase 1's row there, or a
 check made at that shape after the paths ran; `pairhmm_viterbi`'s
 launches are the golden `run`'s, `coverage_viterbi`'s and
-`coverage_posteriors`' those of `qc` and `asm --sd`, the k-mer
-kernels' the golden `run`'s, timed at phase 4's inputs), and the
+`coverage_posteriors`' those of `qc` and `asm --sd`, the k-mer and MEC
+kernels' the golden `run`'s, timed at phase 4's inputs, and
+canonical_hashes', on no path, at 2^21 hashes and k 12), and the
 `{"ok": true, ...}` line.
 """
 from __future__ import annotations
@@ -220,14 +236,16 @@ def _wrappers() -> dict:
     """Every kernel wrapper of the port by its kernels-line name."""
     from volcanosv_tpu_torch.ops import banded_align as ba
     from volcanosv_tpu_torch.ops import kmer
-    from volcanosv_tpu_torch.phasing import realign
+    from volcanosv_tpu_torch.phasing import phase, realign
     from volcanosv_tpu_torch.qc import flagger
     return dict(banded_dp=ba.banded_dp, tb_walk=ba.tb_walk,
                 pairhmm_viterbi=realign._viterbi_batch,
                 coverage_viterbi=flagger.coverage_viterbi,
                 coverage_posteriors=flagger.coverage_posteriors,
                 kmer_count=kmer.kmer_count_into,
-                unique_mask=kmer.unique_mask, kmer_vote=kmer.kmer_vote)
+                unique_mask=kmer.unique_mask, kmer_vote=kmer.kmer_vote,
+                mec_phase=phase._mec_phase,
+                canonical_hashes=kmer.canonical_hashes)
 
 
 def _reset_counts() -> None:
@@ -629,7 +647,9 @@ def _asm_args(d: str, out: str, device: str) -> list[str]:
 
 def _profile_summary(prof, wall_s: float) -> dict:
     """Device time by kernel name (ms) from a torch.profiler trace, the
-    summed device time and its share of the wall time."""
+    summed device time and its share of the wall time, and the time of
+    PyTorch's indexing kernels (names holding "index": `index_add_`, the
+    gathers) with their names."""
     by_name = {}
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -641,8 +661,11 @@ def _profile_summary(prof, wall_s: float) -> dict:
                           by_name.get(e.key, (0.0, 0))[1] + e.count)
     busy = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    index = {k[:120]: v[0] for k, v in by_name.items()
+             if "index" in k.lower()}
     return dict(busy_ms=busy, wall_s=wall_s,
                 busy_share=busy / (wall_s * 1e3),
+                index_ms=sum(index.values()), index_kernels=index,
                 kernels=[dict(name=k[:120], ms=v[0], count=v[1])
                          for k, v in top])
 
@@ -781,13 +804,16 @@ def phase3_cuda_vs_cpu(seed: int) -> None:
     _log(f"phase 3: VCFs byte-identical ({len(vcfs[0])} bytes)")
 
 
-# The asm path's calls whose inputs phase 4b keeps: the torch-op device
-# function (the JAX package's jitted XLA code without a kernel yet) and the
-# k-mer kernels' wrappers where the partition calls them; module of the
-# call site, attribute, and which call's inputs are kept (None: the first).
-# The wrappers count their own launches; the wrapping only keeps inputs.
-WATCHED = (("phasing.phase", "_mec_phase",
-            lambda args: args[0].numel()),       # the most observations
+# The asm path's calls whose inputs phase 4b keeps: the MEC solve (whose
+# `_mec_inputs` are the MEC kernel's arguments) and the k-mer kernels'
+# wrappers where the partition calls them; module of the call site,
+# attribute, and which call's inputs are kept (None: the first).  The
+# wrappers count their own launches; the wrapping only keeps inputs, and
+# never wraps a kernel wrapper in its own module, whose launch counter is
+# read through the name the wrapping would rebind (`_mec_phase` counts
+# itself as `_mec_phase.launches`).
+WATCHED = (("phasing.phase", "_mec_solve",
+            lambda args: len(args[0])),          # the most observations
            ("partition.partition", "kmer_count_into",
             lambda args: args[1].numel()),       # the largest chunk
            ("partition.partition", "unique_mask", None),
@@ -850,7 +876,7 @@ def _write_asm_case(d: str, seed: int, length: int, n_del: int, n_ins: int,
 def phase4_asm(seed: int, profile: bool):
     """`asm --device cuda` on 2 Mb at 30x, then `vc-large-indel --device
     cuda` on its contigs and `eval`.  Returns the summary and the inputs
-    kept of the torch-op device functions."""
+    kept of the WATCHED calls."""
     import contextlib
 
     import torch
@@ -890,7 +916,7 @@ def phase4_asm(seed: int, profile: bool):
     stages = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
     if rc != 0:
         raise AssertionError(f"asm exited {rc}")
-    for name in ("banded_dp", "tb_walk") + KMER_KERNELS:
+    for name in ("banded_dp", "tb_walk", "mec_phase") + KMER_KERNELS:
         if kernel_launches[name] <= 0:
             raise AssertionError(f"{name} never launched during asm")
     _log(f"phase 4: asm {asm_s:.1f} s, launches {kernel_launches}, "
@@ -947,25 +973,6 @@ def _time_calls_ms(fn, runs: int = 5) -> float:
 
 def _on(x, dev):
     return x.to(dev) if hasattr(x, "to") else x
-
-
-def _card_vs_cpu(name: str, fn, args, equal, bound: dict) -> dict:
-    """fn(*args) on the card and on the CPU: outputs checked by `equal`,
-    times on both, the bound beside them."""
-    import torch
-    args_cpu = [_on(a, "cpu") for a in args]
-    t0 = time.perf_counter()
-    want = fn(*args_cpu)
-    cpu_ms = (time.perf_counter() - t0) * 1e3
-    got = fn(*args)
-    torch.cuda.synchronize()
-    if not equal(got, want):
-        raise AssertionError(f"phase 4b: {name} on the card != on the CPU")
-    ms = _time_calls_ms(lambda: fn(*args))
-    row = dict(name=name, ms=ms, cpu_ms=cpu_ms,
-               share_of_bound=bound["bound_ms"] / ms, **bound)
-    _log(f"phase 4b: {json.dumps(row)}")
-    return row
 
 
 def _viterbi_pairs(rng, B: int, R: int, W: int, err: float):
@@ -1391,8 +1398,8 @@ def _asm_cuda_vs_cpu(d: str, dtype: str, err: float) -> dict:
     """`asm -d dtype` on cuda and on cpu on the pipeline test's recipe (80
     kb, 24x, 7 kb reads, seed 21) with substitutions at `err` and indels at
     `err / 2`: the four outputs must be byte-identical.  Returns the times,
-    the stage times, the output sizes, the torch-op device functions'
-    calls and the kernels' launches on the card."""
+    the stage times, the output sizes, the WATCHED calls and the
+    kernels' launches on the card."""
     import numpy as np
 
     from volcanosv_tpu_torch import cli, sim
@@ -1447,14 +1454,309 @@ def _asm_cuda_vs_cpu(d: str, dtype: str, err: float) -> dict:
     return info
 
 
+# the MEC kernel's designs by mec_phase_branch's number
+MEC_DESIGNS = {1: "block", 2: "grid"}
+
+
+def _mec_case(rng, n_reads, S, per_read, flip=0.15, zero=0.05):
+    """tests/torch_inputs.py::mec_case, copied since the smoke run imports
+    no tests: read r observes 1 .. 2 * per_read - 1 consecutive SNPs from a
+    start that grows with r, alleles of a random truth, `flip` flipped,
+    `zero` 0: (obs_read int32, obs_snp int32, obs_allele int8)."""
+    import numpy as np
+    truth_h = rng.choice([-1, 1], S)
+    truth_a = rng.choice([-1, 1], n_reads)
+    n = rng.integers(1, 2 * per_read, n_reads)
+    start = np.sort(rng.integers(0, S, n_reads))
+    obs_read = np.repeat(np.arange(n_reads), n)
+    first = np.repeat(np.cumsum(n) - n, n)
+    obs_snp = np.minimum(np.repeat(start, n) + np.arange(n.sum()) - first,
+                         S - 1)
+    o = truth_a[obs_read] * truth_h[obs_snp]
+    o[rng.random(len(o)) < flip] *= -1
+    o[rng.random(len(o)) < zero] = 0
+    return obs_read.astype(np.int32), obs_snp.astype(np.int32), \
+        o.astype(np.int8)
+
+
+MEC_EDGES = ("n_iter_0", "n_iter_1", "n_iter_30", "uncovered", "all_zero",
+             "one_obs", "no_obs", "duplicates", "tie", "unsorted")
+
+
+def _mec_edge_case(name):
+    """tests/torch_inputs.py::mec_edge_case, copied: (obs_read, obs_snp,
+    obs_allele, S, n_reads, n_iter, h_init or None for chain_init's,
+    seed)."""
+    import numpy as np
+    rng = np.random.default_rng(MEC_EDGES.index(name) + 100)
+    n_iter = {"n_iter_0": 0, "n_iter_1": 1, "n_iter_30": 30}.get(name, 5)
+    h_init, seed = None, MEC_EDGES.index(name)
+    if name in ("one_obs", "no_obs"):
+        n = 1 if name == "one_obs" else 0
+        return (np.full(n, 3, np.int32), np.full(n, 2, np.int32),
+                np.full(n, -1, np.int8), 4, 5, 2, None, seed)
+    if name == "tie":
+        r = np.repeat(np.arange(6), 2).astype(np.int32)
+        s = np.tile([0, 1], 6).astype(np.int32)
+        return (r, s, np.ones(12, np.int8), 2, 6, 0,
+                np.array([1, -1], np.int32), 3)
+    r, s, o = _mec_case(rng, 80, 40, 5)
+    S, n_reads = 40, 80
+    if name == "uncovered":
+        r, s, S, n_reads = r + 10, s * 3 // 2, 60, 100
+    elif name == "all_zero":
+        o[:] = 0
+    elif name == "duplicates":
+        k = rng.integers(1, 4, len(r))
+        r, s, o = np.repeat(r, k), np.repeat(s, k), np.repeat(o, k)
+        flip = rng.random(len(o)) < 0.1
+        o[flip] *= -1
+    elif name == "unsorted":
+        p = rng.permutation(len(r))
+        marker = np.sort(rng.choice(n_reads, 20, replace=False))
+        r = np.concatenate([r[p], marker])
+        s = np.concatenate([s[p], np.full(20, S)])
+        o = np.concatenate([o[p], rng.choice([-1, 1], 20)])
+        S += 1
+    return (r.astype(np.int32), s.astype(np.int32), o.astype(np.int8), S,
+            n_reads, n_iter, h_init, seed)
+
+
+def _mec_chromosome(seed: int):
+    """One chromosome's MEC input at 30x HiFi, made with numpy: 250 Mb, het
+    SNPs 1 every 1.5 kb at uniform positions (S = 166,667), 9 kb reads at
+    30x (R = 833,333) starting uniformly, ordered by start as the pileup
+    orders reads, each observing every SNP it covers (about 5M), alleles of
+    a random truth with 0.2% flipped and 1% 0: (obs_read int32, obs_snp
+    int32, obs_allele int8, S, R)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    L, S, R, read_len = 250_000_000, 166_667, 833_333, 9_000
+    pos = np.sort(rng.integers(0, L, S))
+    start = np.sort(rng.integers(0, L - read_len, R))
+    lo = np.searchsorted(pos, start)
+    n = np.searchsorted(pos, start + read_len) - lo
+    obs_read = np.repeat(np.arange(R, dtype=np.int32), n)
+    first = np.repeat(np.cumsum(n) - n, n)
+    obs_snp = (np.repeat(lo, n) + np.arange(n.sum()) - first).astype(np.int32)
+    o = rng.choice(np.array([-1, 1], np.int8), R)[obs_read] * \
+        rng.choice(np.array([-1, 1], np.int8), S)[obs_snp]
+    o[rng.random(len(o)) < 0.002] *= -1
+    o[rng.random(len(o)) < 0.01] = 0
+    return obs_read, obs_snp, o.astype(np.int8), S, R
+
+
+def _mec_bound(args, n_reads: int, n_iter: int) -> dict:
+    """Bound of one MEC call on these inputs: the observations and h0 read
+    once, h, a and the MEC written; per restart, the 2 * n_iter + 1 votes
+    add one signed term an observation with o != 0 (one IMAD or select),
+    each read or SNP vote takes one select for its sign, and the MEC takes
+    two operations an observation with o != 0 (the product's sign and the
+    count)."""
+    obs_read, obs_snp, obs_allele, h0 = args
+    n_restarts, S = h0.shape
+    n_inf = int((obs_allele != 0).sum())
+    ops = n_restarts * ((2 * n_iter + 1) * n_inf
+                        + n_iter * (n_reads + S) + n_reads + 2 * n_inf)
+    n_bytes = sum(a.numel() * a.element_size() for a in args) \
+        + 4 * (S + n_reads) + 8
+    return dict(_bound(n_bytes, ops), informative=n_inf)
+
+
+def _mec_row(name: str, args, n_reads: int, n_iter: int,
+             branch: str = "auto", cpu: bool = False,
+             timed: bool = False) -> dict:
+    """The MEC kernels (one launch of `_mec_phase` on the card's tensors:
+    the CSR sort and the votes) against `_mec_phase_plain` on the same
+    tensors and, with `cpu`, the wrapper on their CPU copies: (h, a, mec)
+    equal, or raise.  `timed`: the kernels' device time a call (queued),
+    the plain version's on the card (host launches included), and the
+    bound."""
+    import torch
+
+    from volcanosv_tpu_torch.ops import cuda_build
+    from volcanosv_tpu_torch.phasing import phase
+    kw = dict(n_reads=n_reads, n_iter=n_iter)
+    n0 = phase._mec_phase.launches
+    got = phase._mec_phase(*args, **kw, branch=branch)
+    torch.cuda.synchronize()
+    if phase._mec_phase.launches != n0 + 1:
+        raise AssertionError(f"phase 4b: MEC {name} launched no kernel")
+    if not _equal_tensors(got, [w.cpu() for w in
+                                phase._mec_phase_plain(*args, **kw)]):
+        raise AssertionError(f"phase 4b: MEC kernel != plain at {name}")
+    n_restarts, S = args[3].shape
+    design = branch if branch != "auto" else MEC_DESIGNS[
+        cuda_build.lib("mec").mec_phase_branch(S, n_reads)]
+    row = dict(name=name, design=design, obs=int(args[0].numel()),
+               restarts=n_restarts, snps=S, reads=n_reads, n_iter=n_iter,
+               mec=int(got[2]), equal=True, max_abs_err=0)
+    if cpu:
+        args_cpu = [a.cpu() for a in args]
+        t0 = time.perf_counter()
+        want = phase._mec_phase(*args_cpu, **kw)
+        row["cpu_ms"] = (time.perf_counter() - t0) * 1e3
+        if not _equal_tensors(got, want):
+            raise AssertionError(f"phase 4b: MEC kernel != CPU at {name}")
+    if timed:
+        row.update(
+            ms=_time_queued_ms(lambda: phase._mec_phase(
+                *args, **kw, branch=branch)),
+            plain_ms=_time_calls_ms(
+                lambda: phase._mec_phase_plain(*args, **kw)),
+            **_mec_bound(args, n_reads, n_iter))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    _log(f"phase 4b: MEC {json.dumps(row)}")
+    return row
+
+
+def _mec_solve_times(solve_args, reps: int) -> dict:
+    """The phase stage's MEC call end to end, host clock: `_mec_solve` on
+    the card (chain init and restarts on the host, the upload, the kernels,
+    h and a back) against the same steps with `_mec_phase_plain` in the
+    kernels' place (the torch ops that ran there before the kernels),
+    `reps` calls each in turns: equal results, the median ms of each."""
+    import numpy as np
+    import torch
+
+    from volcanosv_tpu_torch.phasing import phase
+    args = (*solve_args[:-1], "cuda")
+
+    def plain():
+        margs, kw = phase._mec_inputs(*args)
+        h, a, mec = phase._mec_phase_plain(*margs, **kw)
+        return h.cpu().numpy(), a.cpu().numpy(), int(mec)
+    times = dict(solve=[], solve_plain=[])
+    for _ in range(reps):
+        for key, fn in (("solve", lambda: phase._mec_solve(*args)),
+                        ("solve_plain", plain)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            if key == "solve":
+                got = out
+            elif not all(np.array_equal(x, y) for x, y in zip(got, out)):
+                raise AssertionError("phase 4b: _mec_solve != its plain "
+                                     "version")
+    return {f"{k}_ms": float(np.median(v)) for k, v in times.items()}
+
+
+def _mec_rows(seed: int, kept: dict) -> dict:
+    """The MEC kernel against its plain version: at phase 4's largest
+    observation set (card and CPU, timed), at every edge case in both
+    designs (card and CPU), at R + S just inside and just past one block's
+    shared memory (auto and grid), and at a chromosome's scale (the grid
+    design, card only, timed)."""
+    import numpy as np
+    import torch
+
+    from volcanosv_tpu_torch.config import PhasingConfig
+    from volcanosv_tpu_torch.ops import cuda_build
+    from volcanosv_tpu_torch.phasing import phase
+
+    def on_card(*xs):
+        return [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                for x in xs]
+
+    args, _kw = kept["_mec_solve"]
+    margs, kw = phase._mec_inputs(*args[:-1], "cuda")
+    out = dict(asm=_mec_row("asm's largest observation set", margs, **kw,
+                            cpu=True, timed=True))
+    out["asm"].update(_mec_solve_times(args, 5))
+    out["edges"] = []
+    for name in MEC_EDGES:
+        r, s, o, S, n_reads, n_iter, h_init, sd = _mec_edge_case(name)
+        if h_init is None:
+            h_init = phase.chain_init(r, s, o, S)
+        h0 = phase.restart_inits(h_init, sd, 8)
+        for branch in ("block", "grid"):
+            out["edges"].append(_mec_row(name, on_card(r, s, o, h0), n_reads,
+                                         n_iter, branch=branch, cpu=True))
+    top = cuda_build.lib("mec").mec_block_max_entries()
+    out["threshold"] = []
+    for past in (0, 1):
+        S = 9000
+        n_reads = top - S + past
+        r, s, o = _mec_case(np.random.default_rng(seed + past), n_reads, S,
+                            6)
+        h0 = phase.restart_inits(phase.chain_init(r, s, o, S), seed, 8)
+        a = on_card(r, s, o, h0)
+        for branch in ("auto", "grid"):
+            row = _mec_row(f"R + S = {top + past}", a, n_reads, 5,
+                           branch=branch)
+            if branch == "auto" and row["design"] != ("grid" if past
+                                                      else "block"):
+                raise AssertionError(f"phase 4b: MEC auto took {row}")
+            out["threshold"].append(row)
+    t0 = time.perf_counter()
+    r, s, o, S, R = _mec_chromosome(seed + 11)
+    h0 = phase.restart_inits(phase.chain_init(r, s, o, S), seed, 8)
+    gen_s = time.perf_counter() - t0
+    row = _mec_row("a chromosome at 30x", on_card(r, s, o, h0), R, 30,
+                   timed=True)
+    if row["design"] != "grid":
+        raise AssertionError(f"phase 4b: MEC chromosome took {row}")
+    row.update(inputs_s=gen_s, **_mec_solve_times(
+        (r, s, o, S, R, PhasingConfig(), seed, 8, "cuda"), 3))
+    out["chromosome"] = row
+    return out
+
+
+# int32 operations of one canonical_hashes element at any k, as the
+# kernel's formula needs them (csrc/kmer.cu): the complement's xor, a bit
+# reverse, two shift-and pairs and an or to put each 2-bit field back in
+# order, the shift down by 32 - 2k, and the minimum
+CANONICAL_OPS = 9
+
+
+def _canonical_rows(seed: int) -> list[dict]:
+    """canonical_hashes' kernel against its plain version on the card and
+    on the CPU, on 2^21 random int32 hashes (negative values, bits above
+    2k), at k 6, 12, 15 and 16: equal exactly, each timed beside its bound
+    (8 bytes an element, CANONICAL_OPS int32 operations)."""
+    import numpy as np
+    import torch
+
+    from volcanosv_tpu_torch.ops import kmer
+    rng = np.random.default_rng(seed + 12)
+    x_cpu = torch.from_numpy(rng.integers(-2**31, 2**31, 1 << 21).astype(
+        np.int32))
+    x = x_cpu.cuda()
+    rows = []
+    for k in (6, 12, 15, 16):
+        n0 = kmer.canonical_hashes.launches
+        got = kmer.canonical_hashes(x, k)
+        torch.cuda.synchronize()
+        launched = kmer.canonical_hashes.launches == n0 + 1
+        t0 = time.perf_counter()
+        want = kmer.canonical_hashes(x_cpu, k)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        if not launched or not torch.equal(
+                got, kmer._canonical_hashes_plain(x, k)) or \
+                not torch.equal(got.cpu(), want):
+            raise AssertionError(f"phase 4b: canonical_hashes kernel != "
+                                 f"plain at k {k}")
+        row = dict(name="canonical_hashes", n=x.numel(), k=k, equal=True,
+                   max_abs_err=0, cpu_ms=cpu_ms,
+                   ms=_time_queued_ms(lambda: kmer.canonical_hashes(x, k)),
+                   plain_ms=_time_calls_ms(
+                       lambda: kmer._canonical_hashes_plain(x, k)),
+                   library_ms=None,
+                   **_bound(8 * x.numel(), CANONICAL_OPS * x.numel()))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        _log(f"phase 4b: {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
 def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
     """`asm` on cuda and cpu (byte-identical outputs), HiFi and CLR (where
     the pair-HMM kernel must launch), then the pair-HMM kernel against its
-    plain version (`_viterbi_rows`, `_viterbi_wide_rows`), the MEC votes
-    (torch ops) card against CPU, and the k-mer kernels against their
-    plain versions (`_kmer_rows`, `_kmer_edges`), each timed beside its
-    bound."""
-    from volcanosv_tpu_torch.phasing import phase
+    plain version (`_viterbi_rows`, `_viterbi_wide_rows`), the MEC kernel
+    (`_mec_rows`), canonical_hashes' kernel (`_canonical_rows`) and the
+    k-mer kernels (`_kmer_rows`, `_kmer_edges`) against theirs, each timed
+    beside its bound."""
     info = dict(hifi=_asm_cuda_vs_cpu(os.path.join(WORK, "asm_cuda_vs_cpu"),
                                       "Hifi", 0.001))
     # CLR (13.5% total error) realigns every candidate site through the
@@ -1466,29 +1768,10 @@ def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
         raise AssertionError("phase 4b: asm -d CLR launched no pair-HMM "
                              "kernel")
     vrows = _viterbi_rows(seed) + _viterbi_wide_rows(seed)
-
-    rows = []
-    args, kw = kept["_mec_phase"]
-    obs_read, obs_snp, obs_allele, h0 = args
-    n_obs, (n_restarts, S) = obs_read.numel(), h0.shape
-    n_reads, n_iter = kw["n_reads"], kw["n_iter"]
-    # per restart: each iteration two votes (a multiply and an add an
-    # observation each) and two signs (a compare and a select a read or a
-    # SNP); then the last read vote and sign, and the MEC (two multiplies,
-    # two compares, an and, an add an observation)
-    ops = n_restarts * (n_iter * (4 * n_obs + 2 * (n_reads + S))
-                        + 2 * n_obs + 2 * n_reads + 6 * n_obs)
-    n_bytes = sum(a.numel() * a.element_size() for a in args) \
-        + 4 * (S + n_reads + 1)
-    rows.append(dict(_card_vs_cpu(
-        "_mec_phase", lambda *a: phase._mec_phase(*a, **kw), list(args),
-        _equal_tensors, _bound(n_bytes, ops)),
-        obs=n_obs, restarts=n_restarts, snps=S, reads=n_reads,
-        n_iter=n_iter))
-
+    info["mec"] = _mec_rows(seed, kept)
+    info["canonical"] = _canonical_rows(seed)
     info["kmer"] = _kmer_rows(kept)
     info["kmer_edges"] = _kmer_edges()
-    info["device_functions"] = rows
     info["pairhmm_viterbi"] = vrows
     return info
 
@@ -1676,7 +1959,8 @@ def phase5_run_golden(profile: bool) -> dict:
     launches = {"banded_dp": ba.banded_dp.launches,
                 "tb_walk": ba.tb_walk.launches,
                 "pairhmm_viterbi": kernel_launches["pairhmm_viterbi"]}
-    launches.update({k: kernel_launches[k] for k in KMER_KERNELS})
+    launches.update({k: kernel_launches[k]
+                     for k in KMER_KERNELS + ("mec_phase",)})
     dp_shapes = _dp_shapes(ba.banded_dp.shapes)
     walk_shapes = _walk_shapes(ba.tb_walk.shapes)
     kmer_shapes = _kmer_shapes()
@@ -2336,6 +2620,38 @@ def _kmer_kernel_entries(info: dict) -> list[dict]:
     return entries
 
 
+def _mec_kernel_entries(info: dict) -> list[dict]:
+    """The kernels-line entries of the MEC kernel (launches on the golden
+    `run` and on `asm`, checked and timed at phase 4's largest observation
+    set, the chromosome-scale row, the threshold pair and the edge cases
+    beside it) and of canonical_hashes' (on no path: 0 launches; timed at
+    2^21 hashes and k 12)."""
+    mec = info["asm_cuda_vs_cpu"]["mec"]
+    asm = mec["asm"]
+    canon = info["asm_cuda_vs_cpu"]["canonical"]
+    k12 = next(r for r in canon if r["k"] == 12)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    return [
+        dict(name="mec_phase", route="cuda",
+             source="volcanosv_tpu_torch/csrc/mec.cu",
+             replaces="volcanosv_tpu/phasing/phase.py:63",
+             path="run (golden sim)", design=asm["design"],
+             launches=info["run"]["kernel_launches"]["mec_phase"],
+             launches_asm=info["asm"]["kernel_launches"]["mec_phase"],
+             max_abs_err=0, cpu_ms=asm["cpu_ms"],
+             **{k: asm[k] for k in keys}, library_ms=None,
+             shapes=[asm, mec["chromosome"]] + mec["threshold"]
+             + mec["edges"]),
+        dict(name="canonical_hashes", route="cuda",
+             source="volcanosv_tpu_torch/csrc/kmer.cu",
+             replaces="volcanosv_tpu/ops/kmer.py:63", path=None,
+             launches=info["run"]["kernel_launches"]["canonical_hashes"],
+             max_abs_err=0, cpu_ms=k12["cpu_ms"],
+             **{k: k12[k] for k in keys}, library_ms=None,
+             shapes=canon),
+    ]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2493,6 +2809,7 @@ def main() -> int:
             library_ms=None, shapes=[walk]))
     kernels += _scan_kernel_entries(info, rng)
     kernels += _kmer_kernel_entries(info)
+    kernels += _mec_kernel_entries(info)
     print(json.dumps(info))
     print(smi)
     print(json.dumps({"kernels": kernels}))

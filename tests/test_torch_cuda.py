@@ -33,9 +33,18 @@ stream counted chunk by chunk across the seams, rows with lengths, vote
 chunks with empty, all-N, homopolymer and N-run rows, two zero tables,
 and a 120 kb read in a 2^17-column chunk: integers, equal exactly.
 
-The `asm` path's torch-op device functions (the MEC votes, the k-mer ops
-the kernels replaced) run the same ops on the card as on the CPU: their
-outputs on the card equal the CPU's."""
+The MEC votes' kernel (csrc/mec.cu) is held to its plain version on
+tests/torch_inputs.py's MEC edge cases, at `asm`'s shape with n_iter 0, 3
+and 30, with tied restarts, and at R + S just inside and just past one
+block's shared memory, in both of its designs (a block a restart, a grid
+of a thread a row) wherever each runs, with more than one block of the
+CSR scan's tiles, and with int64 indices: (h, a, mec) equal exactly; the
+wrappers' refusals of bad inputs.
+canonical_hashes' kernel (csrc/kmer.cu) equals its plain version at k 1,
+12 and 16 on random int32 hashes.
+
+The k-mer ops the kernels replaced run the same ops on the card as on
+the CPU: their outputs on the card equal the CPU's."""
 import numpy as np
 import pytest
 import torch
@@ -44,8 +53,10 @@ from volcanosv_tpu_torch.ops import banded_align as ba
 from volcanosv_tpu_torch.ops import kmer
 from volcanosv_tpu_torch.phasing import phase, realign
 from volcanosv_tpu_torch.qc import flagger
-from torch_inputs import (VITERBI_EDGES, hmm_tie_case, kmer_count_case,
-                          kmer_vote_case, viterbi_edge_case, viterbi_pairs)
+from torch_inputs import (MEC_EDGES, VITERBI_EDGES, hmm_tie_case,
+                          kmer_count_case, kmer_vote_case, mec_case,
+                          mec_edge_case, mec_restart_mecs, viterbi_edge_case,
+                          viterbi_pairs)
 
 DUAL = ba.Scores(match=2, mismatch=-4, gap_open=-4, gap_extend=-2,
                  gap_open2=-24, gap_extend2=-1)
@@ -548,6 +559,138 @@ def test_mec_phase_card_equals_cpu(cuda, n_iter):
         n_reads=n_reads, n_iter=n_iter) for dev in (cuda, "cpu"))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def _mec_on_card(cuda, r, s, o, h0, n_reads, n_iter, branch):
+    """The kernel (one launch of the wrapper) against `_mec_phase_plain` on
+    the same card tensors: (h, a, mec) equal, dtypes and shapes too."""
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+            for x in (r, s, o, h0)]
+    n = phase._mec_phase.launches
+    got = phase._mec_phase(*args, n_reads=n_reads, n_iter=n_iter,
+                           branch=branch)
+    torch.cuda.synchronize()
+    assert phase._mec_phase.launches == n + 1
+    want = phase._mec_phase_plain(*args, n_reads=n_reads, n_iter=n_iter)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    return got
+
+
+def _h0(r, s, o, S, h_init=None, seed=0):
+    if h_init is None:
+        h_init = phase.chain_init(r, s, o, S)
+    return phase.restart_inits(h_init, seed, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["block", "grid"])
+@pytest.mark.parametrize("case", MEC_EDGES)
+def test_mec_kernel_edges_match_plain(cuda, case, branch):
+    r, s, o, S, n_reads, n_iter, h_init, seed = mec_edge_case(case)
+    _mec_on_card(cuda, r, s, o, _h0(r, s, o, S, h_init, seed), n_reads,
+                 n_iter, branch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_iter", [0, 3, 30])
+@pytest.mark.parametrize("branch", ["auto", "block", "grid"])
+def test_mec_kernel_matches_plain(cuda, branch, n_iter):
+    """`asm`'s shape: 6677 reads, 941 SNPs, about 33k observations."""
+    rng = np.random.default_rng(n_iter)
+    r, s, o = mec_case(rng, 6677, 941, 5)
+    _mec_on_card(cuda, r, s, o, _h0(r, s, o, 941, seed=n_iter), 6677,
+                 n_iter, branch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch", ["block", "grid"])
+def test_mec_kernel_picks_first_of_tied_restarts(cuda, branch):
+    """Restarts 3 and 5 start from the chain init, the others from random
+    phases: with no iteration 3 and 5 tie on the lowest MEC, and 3 wins."""
+    rng = np.random.default_rng(7)
+    r, s, o = mec_case(rng, 300, 120, 6, flip=0.05)
+    h0 = rng.choice([-1, 1], (8, 120)).astype(np.int32)
+    h0[3] = h0[5] = phase.chain_init(r, s, o, 120)
+    mecs = mec_restart_mecs(r, s, o, h0, 300)
+    assert min(mecs) == mecs[3] == mecs[5] < min(mecs[:3])
+    got = _mec_on_card(cuda, r, s, o, h0, 300, 0, branch)
+    assert torch.equal(got[0].cpu(), torch.from_numpy(h0[3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["inside", "past"])
+def test_mec_kernel_at_the_shared_memory_threshold(cuda, side):
+    """R + S at the block design's largest and one more: "auto" takes the
+    block design inside and the grid design past it, where "block" is
+    refused; the grid design is right on both sides."""
+    from volcanosv_tpu_torch.ops import cuda_build
+    lib = cuda_build.lib("mec")
+    top = lib.mec_block_max_entries()
+    assert top > 50_000
+    S = 9000
+    n_reads = top - S + (side == "past")
+    rng = np.random.default_rng(top)
+    r, s, o = mec_case(rng, n_reads, S, 6)
+    h0 = _h0(r, s, o, S)
+    assert lib.mec_phase_branch(S, n_reads) == (1 if side == "inside" else 2)
+    auto = _mec_on_card(cuda, r, s, o, h0, n_reads, 5, "auto")
+    grid = _mec_on_card(cuda, r, s, o, h0, n_reads, 5, "grid")
+    assert all(torch.equal(x, y) for x, y in zip(auto, grid))
+    if side == "past":
+        with pytest.raises(ValueError):
+            phase._mec_phase(*(torch.from_numpy(x).to(cuda)
+                               for x in (r, s, o, h0)),
+                             n_reads=n_reads, n_iter=5, branch="block")
+
+
+@pytest.mark.cuda
+def test_mec_kernel_scans_many_tiles(cuda):
+    """R + S past 1024 of the CSR scan's 4096-row tiles (its totals scanned
+    in more than one pass), few observations, int64 indices: equal."""
+    rng = np.random.default_rng(11)
+    n_reads, S = 4_300_000, 700
+    r, s, o = mec_case(rng, 3000, S, 5)
+    r = (r.astype(np.int64) * 1433) % n_reads
+    _mec_on_card(cuda, r, s.astype(np.int64), o, _h0(r, s, o, S), n_reads,
+                 3, "auto")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 12, 16])
+def test_canonical_hashes_kernel_matches_plain(cuda, k):
+    """Random int32 hashes over the whole range (negative values, bits
+    above 2k): the kernel equals the plain version on the card and on the
+    CPU."""
+    rng = np.random.default_rng(k)
+    h = rng.integers(-2**31, 2**31, (513, 4099)).astype(np.int32)
+    x = torch.from_numpy(h).to(cuda)
+    got = _launched(kmer.canonical_hashes,
+                    lambda: kmer.canonical_hashes(x, k))
+    assert got.dtype == torch.int32 and got.shape == x.shape
+    assert torch.equal(got, kmer._canonical_hashes_plain(x, k))
+    assert torch.equal(got.cpu(), kmer.canonical_hashes(x.cpu(), k))
+
+
+@pytest.mark.cuda
+def test_mec_and_canonical_wrappers_reject_bad_inputs(cuda):
+    r, s, o, S, n_reads, _n_iter, _h, _seed = mec_edge_case("n_iter_1")
+    h0 = _h0(r, s, o, S)
+    r, s, o, h0 = (torch.from_numpy(x).to(cuda) for x in (r, s, o, h0))
+    for args in ((r, s, o.int(), h0), (r.float(), s, o, h0),
+                 (r, s, o, h0.long()), (r, s.cpu(), o, h0),
+                 (r, s, o, h0.cpu()), (r, s, o, h0[0]),
+                 (r, s, o, h0.T.contiguous().T), (r[:-1], s, o, h0)):
+        with pytest.raises(ValueError):
+            phase._mec_phase(*args, n_reads=n_reads, n_iter=1)
+    for kw in (dict(n_iter=-1), dict(n_iter=1, branch="warp")):
+        with pytest.raises(ValueError):
+            phase._mec_phase(r, s, o, h0, n_reads=n_reads, **kw)
+    x = torch.zeros(64, dtype=torch.int32, device=cuda)
+    for args in ((x, 0), (x, 17), (x.long(), 12), (x[::2], 12)):
+        with pytest.raises(ValueError):
+            kmer.canonical_hashes(*args)
 
 
 @pytest.mark.cuda

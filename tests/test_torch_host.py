@@ -257,10 +257,12 @@ def test_port_modules_import_no_jax():
 
 
 def _kernel_wrapper_calls():
-    """The pair-HMM and coverage-HMM kernel wrappers on small CPU inputs."""
+    """The pair-HMM, coverage-HMM, MEC and canonical-hash kernel wrappers on
+    small CPU inputs."""
     import torch
 
-    from volcanosv_tpu_torch.phasing import realign
+    from volcanosv_tpu_torch.ops import kmer
+    from volcanosv_tpu_torch.phasing import phase, realign
     from volcanosv_tpu_torch.qc import flagger
     p = realign.PairHmmParams(0.1)
     segs = torch.zeros((3, 9), dtype=torch.int8)
@@ -269,6 +271,10 @@ def _kernel_wrapper_calls():
     cov = np.array([[10.0, 12.0, 0.0], [20.0, 0.0, 0.0]])
     emit = flagger.CoverageHMM.from_lambda(10.0)._emissions(
         cov, cov > 0, torch.device("cpu"))
+    obs = [torch.tensor(x, dtype=dt) for x, dt in (
+        ([0, 1, 1, 2], torch.int32), ([0, 0, 1, 1], torch.int32),
+        ([1, -1, 1, 0], torch.int8))]
+    h0 = torch.tensor([[1, 1], [1, -1], [-1, 1]], dtype=torch.int32)
     return {
         "pairhmm_viterbi": (lambda: realign._viterbi_batch(
             segs, lens, haps, W=5, **vars(p)), (3,)),
@@ -276,11 +282,17 @@ def _kernel_wrapper_calls():
                              (2, 3)),
         "coverage_posteriors": (lambda: flagger.coverage_posteriors(*emit),
                                 (3, 2, 4)),
+        "mec_phase": (lambda: phase._mec_phase(*obs, h0, n_reads=4,
+                                               n_iter=2)[1], (4,)),
+        "canonical_hashes": (lambda: kmer.canonical_hashes(
+            torch.arange(-6, 6, dtype=torch.int32).reshape(3, 4), 16),
+            (3, 4)),
     }
 
 
 @pytest.mark.parametrize("kernel", ["pairhmm_viterbi", "coverage_viterbi",
-                                    "coverage_posteriors"])
+                                    "coverage_posteriors", "mec_phase",
+                                    "canonical_hashes"])
 def test_cpu_calls_never_load_kernels(monkeypatch, kernel):
     """A wrapper given CPU tensors runs its plain version: it neither
     builds nor loads a CUDA library."""
@@ -311,6 +323,7 @@ def test_kernel_sources_define_bound_symbols():
             fn = type("Symbol", (), {})()
             self.__dict__[attr] = fn
             return fn
+    bound = set()
     for name in cuda_build.SOURCES:
         path = os.path.join(cuda_build.CSRC, f"{name}.cu")
         assert os.path.exists(path), path
@@ -322,6 +335,13 @@ def test_kernel_sources_define_bound_symbols():
         for sym in rec.names:
             assert re.search(r'extern "C"[^;{(]*\b' + sym + r"\s*\(", src), \
                 (name, sym)
+        bound |= rec.names
+    # every kernel wrapper's launch entry point is among them
+    assert {"banded_dp_launch", "tb_walk_launch_branch",
+            "pairhmm_viterbi_launch", "coverage_viterbi_launch",
+            "coverage_posteriors_launch", "kmer_count_launch",
+            "unique_mask_launch", "kmer_vote_launch",
+            "canonical_hashes_launch", "mec_phase_launch"} <= bound
 
 
 def _dp_batch():

@@ -212,3 +212,92 @@ def kmer_count_case(seed, k, chunk=4096):
     chunks = [stream[i:i + chunk] for i in range(0, len(stream), step)
               if len(stream[i:i + chunk]) >= k]
     return stream, chunks
+
+
+# the MEC votes' inputs (phasing/phase.py::_mec_phase; chip_smoke.py holds
+# copies of mec_case and the edge cases, since the smoke run imports no tests)
+
+
+def mec_case(rng, n_reads, S, per_read, flip=0.15, zero=0.05):
+    """Noisy observations of a random truth (h, a), shaped as a pileup makes
+    them: read r observes 1 .. 2 * per_read - 1 consecutive SNPs from a
+    start that grows with r, ordered by read; `flip` of the alleles
+    flipped, `zero` of them 0.  Returns (obs_read int32, obs_snp int32,
+    obs_allele int8)."""
+    truth_h = rng.choice([-1, 1], S)
+    truth_a = rng.choice([-1, 1], n_reads)
+    n = rng.integers(1, 2 * per_read, n_reads)
+    start = np.sort(rng.integers(0, S, n_reads))
+    obs_read = np.repeat(np.arange(n_reads), n)
+    first = np.repeat(np.cumsum(n) - n, n)
+    obs_snp = np.minimum(np.repeat(start, n) + np.arange(n.sum()) - first,
+                         S - 1)
+    o = truth_a[obs_read] * truth_h[obs_snp]
+    o[rng.random(len(o)) < flip] *= -1
+    o[rng.random(len(o)) < zero] = 0
+    return obs_read.astype(np.int32), obs_snp.astype(np.int32), \
+        o.astype(np.int8)
+
+
+# the MEC edge cases (mec_edge_case): the threshold between the kernel's two
+# designs is a card property, so its pair is made in the card tests
+MEC_EDGES = ("n_iter_0", "n_iter_1", "n_iter_30", "uncovered", "all_zero",
+             "one_obs", "no_obs", "duplicates", "tie", "unsorted")
+MEC_TIE_SEED = 3
+
+
+def mec_edge_case(name):
+    """One MEC_EDGES case: (obs_read, obs_snp, obs_allele, S, n_reads,
+    n_iter, h_init, seed); h_init None means chain_init's.  uncovered:
+    reads 0-9 and 90-99 and every third SNP without observations; all_zero:
+    every allele 0; one_obs / no_obs: one or no observation; duplicates:
+    observations repeated up to three times, some with the other allele;
+    tie: two SNPs read together, a bad h_init and no iteration, so that
+    restart 0 loses and random restarts tie on the lowest MEC (seed
+    MEC_TIE_SEED); unsorted: the observations shuffled, then an SV-marker
+    column's appended at the end, as the pileup appends them."""
+    rng = np.random.default_rng(MEC_EDGES.index(name) + 100)
+    n_iter = {"n_iter_0": 0, "n_iter_1": 1, "n_iter_30": 30}.get(name, 5)
+    h_init, seed = None, MEC_EDGES.index(name)
+    if name in ("one_obs", "no_obs"):
+        n = 1 if name == "one_obs" else 0
+        return (np.full(n, 3, np.int32), np.full(n, 2, np.int32),
+                np.full(n, -1, np.int8), 4, 5, 2, None, seed)
+    if name == "tie":
+        r = np.repeat(np.arange(6), 2).astype(np.int32)
+        s = np.tile([0, 1], 6).astype(np.int32)
+        return (r, s, np.ones(12, np.int8), 2, 6, 0,
+                np.array([1, -1], np.int32), MEC_TIE_SEED)
+    r, s, o = mec_case(rng, 80, 40, 5)
+    S, n_reads = 40, 80
+    if name == "uncovered":
+        r, s, S, n_reads = r + 10, s * 3 // 2, 60, 100
+    elif name == "all_zero":
+        o[:] = 0
+    elif name == "duplicates":
+        k = rng.integers(1, 4, len(r))
+        r, s, o = np.repeat(r, k), np.repeat(s, k), np.repeat(o, k)
+        flip = rng.random(len(o)) < 0.1
+        o[flip] *= -1
+    elif name == "unsorted":
+        p = rng.permutation(len(r))
+        marker = np.sort(rng.choice(n_reads, 20, replace=False))
+        r = np.concatenate([r[p], marker])
+        s = np.concatenate([s[p], np.full(20, S)])
+        o = np.concatenate([o[p], rng.choice([-1, 1], 20)])
+        S += 1
+    return (r.astype(np.int32), s.astype(np.int32), o.astype(np.int8), S,
+            n_reads, n_iter, h_init, seed)
+
+
+def mec_restart_mecs(obs_read, obs_snp, obs_allele, h0, n_reads):
+    """Each restart's MEC with no iteration (numpy): the read vote from its
+    h0 row, then the inconsistent observations."""
+    o = obs_allele.astype(np.int64)
+    out = []
+    for h in h0.astype(np.int64):
+        va = np.zeros(n_reads, np.int64)
+        np.add.at(va, obs_read, h[obs_snp] * o)
+        a = np.where(va >= 0, 1, -1)
+        out.append(int(((a[obs_read] * h[obs_snp] * o < 0) & (o != 0)).sum()))
+    return out

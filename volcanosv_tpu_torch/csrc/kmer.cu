@@ -2,10 +2,11 @@
 //
 // Replaces: volcanosv_tpu/ops/kmer.py, jitted XLA (not Pallas kernels) —
 // kmer_hashes + count_kmers_dense (the per-haplotype count tables),
-// unique_mask, and distinct_runs + overlap_scores (the read vote).  As plain
-// torch (ops/kmer.py::_kmer_count_plain, _unique_mask_plain,
-// _kmer_vote_plain) they are a sort, a scatter (index_add_) and gathers over
-// (B, L - k + 1) hashes.
+// unique_mask, distinct_runs + overlap_scores (the read vote) and
+// canonical_hashes.  As plain torch (ops/kmer.py::_kmer_count_plain,
+// _unique_mask_plain, _kmer_vote_plain, _canonical_hashes_plain) they are a
+// sort, a scatter (index_add_), gathers over (B, L - k + 1) hashes and a
+// k-step loop of elementwise ops.
 //
 // Codes are int8, A C G T = 0 1 2 3, N = 4 (padding is N).  The hash of the
 // window at w is the 2k-bit integer of codes[w .. w + k - 1] (code & 3 each,
@@ -26,6 +27,13 @@
 // unique_mask_kernel: (H, N) int32 tables -> (H, N) bool, present in exactly
 // one table.  A thread a k-mer, reading its H counts (coalesced along N) and
 // writing its H flags.  Bound: the tables' bytes.
+//
+// canonical_hashes_kernel: min(h, revcomp(h)) of N int32 hashes taken as
+// uint32, k <= 16: the complement is h ^ (4^k - 1) (bits above 2k stay, as
+// in the reference), and its low k 2-bit fields reversed are
+// pairswap(brev(comp)) >> (32 - 2k); the unsigned minimum, stored as int32
+// bits.  One fused elementwise pass (the plain version: k shift-or steps,
+// each its own op).  Bound: 8 bytes an element.
 //
 // kmer_vote_kernel: (B, H) int32,
 //   score[b, j] = sum over distinct valid k-mers x of read b with
@@ -100,6 +108,21 @@ unique_mask_kernel(const int* __restrict__ tables, int H, long long N,
     for (int j = 0; j < H; ++j) n_present += tables[j * N + x] > 0;
     for (int j = 0; j < H; ++j)
       out[j * N + x] = (uint8_t)(n_present == 1 && tables[j * N + x] > 0);
+  }
+}
+
+__global__ void __launch_bounds__(UNIQUE_THREADS)
+canonical_hashes_kernel(const uint32_t* __restrict__ in, long long n, int k,
+                        uint32_t* __restrict__ out) {
+  const uint32_t mask = k == 16 ? 0xffffffffu : (1u << (2 * k)) - 1u;
+  for (long long i = blockIdx.x * (long long)UNIQUE_THREADS + threadIdx.x;
+       i < n; i += (long long)gridDim.x * UNIQUE_THREADS) {
+    const uint32_t h = in[i];
+    // field j of comp (bits 2j, 2j+1) to bits 31-2j, 30-2j, then each pair
+    // of bits back in order: field j at field 15 - j
+    uint32_t c = __brev(h ^ mask);
+    c = ((c >> 1) & 0x55555555u) | ((c & 0x55555555u) << 1);
+    out[i] = min(h, c >> (32 - 2 * k));
   }
 }
 
@@ -219,6 +242,19 @@ extern "C" int unique_mask_launch(const void* tables, int H, long long N,
   unique_mask_kernel<<<blocks, UNIQUE_THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(tables), H, N, static_cast<uint8_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// out = min(h, revcomp(h)) of n int32 hashes `in` (uint32 arithmetic),
+// 1 <= k <= 16, on `stream`.  Returns the cudaError_t of the launch.
+extern "C" int canonical_hashes_launch(const void* in, long long n, int k,
+                                       void* out, void* stream) {
+  if (n <= 0 || k < 1 || k > 16) return (int)cudaErrorInvalidValue;
+  const long long want = (n + UNIQUE_THREADS - 1) / UNIQUE_THREADS;
+  const int blocks = (int)(want < 132 * 64 ? want : 132 * 64);
+  canonical_hashes_kernel<<<blocks, UNIQUE_THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), n, k, static_cast<uint32_t*>(out));
   return (int)cudaGetLastError();
 }
 

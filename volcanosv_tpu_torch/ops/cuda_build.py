@@ -18,7 +18,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("banded_dp", "tb_walk", "pairhmm", "coverage_hmm", "kmer")
+SOURCES = ("banded_dp", "tb_walk", "pairhmm", "coverage_hmm", "kmer", "mec")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -86,6 +86,19 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
         lib.kmer_vote_launch.argtypes = \
             [vp, vp] + [ci] * 3 + [vp, vp, ci, vp, cl, vp, vp]
         lib.kmer_vote_launch.restype = ci
+        lib.canonical_hashes_launch.argtypes = [vp, cl, ci, vp, vp]
+        lib.canonical_hashes_launch.restype = ci
+    elif name == "mec":
+        cl = ctypes.c_longlong
+        lib.mec_block_max_entries.argtypes = []
+        lib.mec_block_max_entries.restype = ci
+        lib.mec_phase_branch.argtypes = [ci, ci]
+        lib.mec_phase_branch.restype = ci
+        lib.mec_scratch_bytes.argtypes = [ci] * 3 + [cl]
+        lib.mec_scratch_bytes.restype = cl
+        lib.mec_phase_launch.argtypes = \
+            [vp, ci, vp, ci, vp, cl, vp] + [ci] * 5 + [vp, cl] + [vp] * 4
+        lib.mec_phase_launch.restype = ci
 
 
 def load_all() -> dict[str, ctypes.CDLL]:

@@ -9,7 +9,8 @@ tables (k=12 → 4^12 = 16.7M int32 = 67MB, resident on the card), and the
 4-way unique-k-mer overlap vote of the read-partition stage
 (get_raw_kmer_overlap_count_unphased_est_pbs_v1.py).  The partition calls
 three wrappers, each with a hand-written CUDA kernel (`csrc/kmer.cu`) for
-CUDA tensors and a plain torch version for CPU tensors:
+CUDA tensors and a plain torch version for CPU tensors (as has
+`canonical_hashes`, which no path calls):
 
   * `kmer_count_into`  — hash + count of a chunk, into a table in place
                          (plain: `kmer_hashes` + `count_kmers_dense`)
@@ -17,10 +18,11 @@ CUDA tensors and a plain torch version for CPU tensors:
   * `kmer_vote`        — hash + `distinct_runs` + `overlap_scores` of a
                          chunk of reads
 
-`kmer_hashes`, `canonical_hashes`, `count_kmers_dense`, `distinct_runs`
-and `overlap_scores` are the JAX package's functions as torch ops.  Every
-function here is integer arithmetic, so the kernels, the plain versions
-and the reference package's jitted versions give equal outputs.
+`kmer_hashes`, `_canonical_hashes_plain`, `count_kmers_dense`,
+`distinct_runs` and `overlap_scores` are the JAX package's functions as
+torch ops.  Every function here is integer arithmetic, so the kernels, the
+plain versions and the reference package's jitted versions give equal
+outputs.
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ def kmer_hashes(codes: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor
     return h, ~bad
 
 
-def canonical_hashes(hashes: torch.Tensor, k: int) -> torch.Tensor:
+def _canonical_hashes_plain(hashes: torch.Tensor, k: int) -> torch.Tensor:
     """min(h, revcomp(h)) — strand-canonical k-mer hash.  The reference's
     uint32 arithmetic is carried in int64 (no value exceeds 2k <= 32 bits),
     then wrapped to int32 as its astype does."""
@@ -81,6 +83,36 @@ def canonical_hashes(hashes: torch.Tensor, k: int) -> torch.Tensor:
         rc = (rc << 2) | (comp & 3)
         comp = comp >> 2
     return torch.minimum(h, rc).to(torch.int32)
+
+
+def canonical_hashes(hashes: torch.Tensor, k: int) -> torch.Tensor:
+    """min(h, revcomp(h)) of int32 hashes of any shape, in the reference's
+    uint32 arithmetic (bits above 2k kept), 1 <= k <= 16; int32 out.  The
+    CUDA kernel (`csrc/kmer.cu::canonical_hashes_kernel`, on the current
+    stream) for CUDA tensors, `_canonical_hashes_plain` for CPU tensors.
+    Each launch appends (numel, k) to `canonical_hashes.shapes`."""
+    if not 1 <= k <= 16:
+        raise ValueError(f"canonical_hashes: k={k} outside 1..16")
+    dev = _check("canonical_hashes",
+                 [("hashes", hashes, torch.int32, hashes.dim())])
+    if dev == "cpu":
+        return _canonical_hashes_plain(hashes, k)
+    out = torch.empty_like(hashes)
+    n = hashes.numel()
+    if n == 0:
+        return out
+    from . import cuda_build
+    with torch.cuda.device(hashes.device):
+        rc = cuda_build.lib("kmer").canonical_hashes_launch(
+            hashes.data_ptr(), n, k, out.data_ptr(), _stream(hashes))
+    cuda_build.check(rc, "canonical_hashes launch", "kmer")
+    canonical_hashes.launches += 1
+    canonical_hashes.shapes.append((n, k))
+    return out
+
+
+canonical_hashes.launches = 0
+canonical_hashes.shapes = []
 
 
 def count_kmers_dense(hashes: torch.Tensor, valid: torch.Tensor,

@@ -11,11 +11,14 @@ updates
     h[s] = sign( Σ_obs(s) a[r]·o )        (SNP majority vote)
 
 monotonically decrease the MEC objective; both are segment-sums over the
-observation list — `index_add_` on the caller's torch device, no Python
-loop over reads/SNPs.  Restarts with different random inits escape local
-optima (cheap: the restarts are a leading batch dimension).  The random
-inits are the reference's `jax.random` draws, reproduced bit for bit by
-utils/threefry.py, so every restart is the reference's.
+observation list.  Restarts with different random inits escape local
+optima.  The random inits are the reference's `jax.random` draws,
+reproduced bit for bit by utils/threefry.py, so every restart is the
+reference's.  `_mec_phase` runs the hand-written CUDA kernels
+(`csrc/mec.cu`: a counting sort of the observations into CSR order on the
+card, then row sums; a block a restart, or a grid over the rows at
+chromosome scale) for CUDA tensors and `_mec_phase_plain` (torch ops, the
+restarts a batch dimension, `index_add_` for the sums) for CPU tensors.
 
 Phase blocks: consecutive het SNPs stay in one block iff some read covers
 both (connectivity sweep); per-block sign is arbitrary, as in any phaser.
@@ -74,9 +77,9 @@ def restart_inits(h_init: np.ndarray, seed: int,
     return h0
 
 
-def _mec_phase(obs_read: torch.Tensor, obs_snp: torch.Tensor,
-               obs_allele: torch.Tensor, h0: torch.Tensor, *, n_reads: int,
-               n_iter: int):
+def _mec_phase_plain(obs_read: torch.Tensor, obs_snp: torch.Tensor,
+                     obs_allele: torch.Tensor, h0: torch.Tensor, *,
+                     n_reads: int, n_iter: int):
     """Batched alternating majority votes over the restarts, on the inputs'
     device.  h0: (n_restarts, n_snps) int32 initial phases (restart_inits).
     Returns (h, a, mec) of the best restart: h (n_snps,) ±1, a (n_reads,)
@@ -107,17 +110,113 @@ def _mec_phase(obs_read: torch.Tensor, obs_snp: torch.Tensor,
     return h[best], a[best], mecs[best]
 
 
-def _mec_solve(obs_read, obs_snp, obs_allele, S: int, n_reads: int,
-               cfg: PhasingConfig, seed: int, n_restarts: int, device):
-    """chain_init + restarts + _mec_phase on `device`; numpy (h, a, mec)."""
+_BRANCHES = {"auto": 0, "block": 1, "grid": 2}
+MAX_RESTARTS = 64
+MAX_NODES = 2**30           # reads and SNPs: a CSR entry packs node * 2 + sign
+
+
+def _mec_check(obs_read, obs_snp, obs_allele, h0, n_reads: int,
+               n_iter: int) -> str:
+    """Raise ValueError unless the observations are contiguous (O,) tensors
+    (reads and SNPs int32 or int64, alleles int8) and h0 a contiguous
+    (n_restarts, S) int32 tensor, all on one device, with O < 2^31,
+    1 <= n_restarts <= MAX_RESTARTS, 0 <= n_reads, S < MAX_NODES and
+    n_iter >= 0.  Returns the device type."""
+    dev = h0.device if isinstance(h0, torch.Tensor) else None
+    specs = (("obs_read", obs_read, (torch.int32, torch.int64), 1),
+             ("obs_snp", obs_snp, (torch.int32, torch.int64), 1),
+             ("obs_allele", obs_allele, (torch.int8,), 1),
+             ("h0", h0, (torch.int32,), 2))
+    for label, x, dts, dim in specs:
+        if not isinstance(x, torch.Tensor) or x.dtype not in dts or \
+                x.dim() != dim or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"_mec_phase: {label} must be a contiguous "
+                             f"{dim}-d {' or '.join(map(str, dts))} tensor "
+                             f"on {dev}")
+    n_obs = obs_read.numel()
+    if obs_snp.numel() != n_obs or obs_allele.numel() != n_obs or \
+            n_obs >= 2**31 or not 1 <= h0.shape[0] <= MAX_RESTARTS or \
+            not 0 <= n_reads < MAX_NODES or h0.shape[1] >= MAX_NODES or \
+            n_iter < 0:
+        raise ValueError(f"_mec_phase: {n_obs}, {obs_snp.numel()} and "
+                         f"{obs_allele.numel()} observations, h0 "
+                         f"{tuple(h0.shape)}, n_reads {n_reads}, n_iter "
+                         f"{n_iter}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"_mec_phase: unsupported device {dev}")
+    return dev.type
+
+
+def _mec_phase(obs_read: torch.Tensor, obs_snp: torch.Tensor,
+               obs_allele: torch.Tensor, h0: torch.Tensor, *, n_reads: int,
+               n_iter: int, branch: str = "auto"):
+    """(h, a, mec) of the best of the restarts, as `_mec_phase_plain`
+    computes them: h (S,) int32, a (n_reads,) int32, mec a 0-d int64.
+    obs_read / obs_snp (O,) int32 (or int64), obs_allele (O,) int8, h0
+    (n_restarts, S) int32 (restart_inits).  The CUDA kernels (`csrc/mec.cu`,
+    on the current stream) for CUDA tensors: the observations sorted into
+    CSR order on the card, then the votes by `branch`: "block" (a block a
+    restart, R + S within one block's shared memory), "grid" (a grid over
+    the rows, any size) or "auto" (block where it fits).
+    `_mec_phase_plain` for CPU tensors.  Each launch appends (O,
+    n_restarts, S, n_reads) to `_mec_phase.shapes`."""
+    if branch not in _BRANCHES:
+        raise ValueError(f"_mec_phase: branch {branch!r} not in "
+                         f"{list(_BRANCHES)}")
+    dev = _mec_check(obs_read, obs_snp, obs_allele, h0, n_reads, n_iter)
+    if dev == "cpu":
+        return _mec_phase_plain(obs_read, obs_snp, obs_allele, h0,
+                                n_reads=n_reads, n_iter=n_iter)
+    from ..ops import cuda_build
+    lib = cuda_build.lib("mec")
+    n_obs = obs_read.numel()
+    n_restarts, S = h0.shape
+    code = _BRANCHES[branch]
+    x = h0.device
+    with torch.cuda.device(x):
+        if code == _BRANCHES["block"] and \
+                S + n_reads > lib.mec_block_max_entries():
+            raise ValueError(f"_mec_phase: R + S = {S + n_reads} exceeds the "
+                             f"block design's shared memory")
+        n_bytes = lib.mec_scratch_bytes(n_restarts, S, n_reads, n_obs)
+        scratch = torch.empty(n_bytes, dtype=torch.uint8, device=x)
+        h = torch.empty(S, dtype=torch.int32, device=x)
+        a = torch.empty(n_reads, dtype=torch.int32, device=x)
+        mec = torch.empty((), dtype=torch.int64, device=x)
+        rc = lib.mec_phase_launch(
+            obs_read.data_ptr(), obs_read.dtype == torch.int64,
+            obs_snp.data_ptr(), obs_snp.dtype == torch.int64,
+            obs_allele.data_ptr(), n_obs, h0.data_ptr(), n_restarts, S,
+            n_reads, n_iter, code, scratch.data_ptr(), n_bytes, h.data_ptr(),
+            a.data_ptr(), mec.data_ptr(),
+            torch.cuda.current_stream(x).cuda_stream)
+    cuda_build.check(rc, "mec_phase launch", "mec")
+    _mec_phase.launches += 1
+    _mec_phase.shapes.append((n_obs, n_restarts, S, n_reads))
+    return h, a, mec
+
+
+_mec_phase.launches = 0
+_mec_phase.shapes = []
+
+
+def _mec_inputs(obs_read, obs_snp, obs_allele, S: int, n_reads: int,
+                cfg: PhasingConfig, seed: int, n_restarts: int, device):
+    """chain_init + restarts: `_mec_phase`'s arguments on `device`, as
+    (args, kwargs)."""
     h0 = restart_inits(chain_init(obs_read, obs_snp, obs_allele, S), seed,
                        n_restarts)
-    h, a, mec = _mec_phase(
-        torch.from_numpy(np.ascontiguousarray(obs_read)).to(device),
-        torch.from_numpy(np.ascontiguousarray(obs_snp)).to(device),
-        torch.from_numpy(np.ascontiguousarray(obs_allele)).to(device),
-        torch.from_numpy(h0).to(device), n_reads=n_reads,
-        n_iter=cfg.max_phase_iter)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(device)
+            for x in (obs_read, obs_snp, obs_allele, h0)]
+    return args, dict(n_reads=n_reads, n_iter=cfg.max_phase_iter)
+
+
+def _mec_solve(obs_read, obs_snp, obs_allele, S: int, n_reads: int,
+               cfg: PhasingConfig, seed: int, n_restarts: int, device):
+    """`_mec_inputs` + `_mec_phase` on `device`; numpy (h, a, mec)."""
+    args, kw = _mec_inputs(obs_read, obs_snp, obs_allele, S, n_reads, cfg,
+                           seed, n_restarts, device)
+    h, a, mec = _mec_phase(*args, **kw)
     return h.cpu().numpy(), a.cpu().numpy(), int(mec)
 
 
