@@ -75,10 +75,11 @@ Phase 4b `asm` with `--device cuda` and with `--device cpu` on the
          in each.  Then the pair-HMM kernel (csrc/pairhmm.cu) against its
          plain version on the card and on the CPU, fp32 scores bit-equal:
          at the path's shape (8192 pairs, R = 57, W = 41, error 0.002 and
-         0.1; timed beside its bound), at edge batches (1 and 37 pairs,
-         empty and full segments, all-N windows, W 9 and 200) and at the
-         block design's windows (W 1025, 2048 timed, and 4096, whose rows
-         exceed shared memory, at 300 pairs of 64 rows and 4 of 4112).
+         0.1; the group design, timed beside its bound), at edge batches
+         (1 and 37 pairs, empty and full segments, all-N windows, W 9 and
+         200) and at the block design's windows (W 1025, 2048 timed, and
+         4096, whose rows exceed shared memory, at 300 pairs of 64 rows
+         and 4 of 4112).
          Then the MEC kernel (csrc/mec.cu) against its plain version,
          (h, a, mec) equal: at phase 4's largest observation set (8
          restarts x 30 iterations; on the card and on the CPU; timed beside
@@ -100,12 +101,13 @@ Phase 4b `asm` with `--device cuda` and with `--device cpu` on the
          phase 4's own inputs (the largest table-build chunk, the unique
          mask of four tables, the largest vote chunk of 64 reads), each
          timed beside its bound (the count also beside one `index_add_` of
-         its prepared index and weights), then at edge cases for k 6 and
-         12: a stream counted in chunks across seams, rows with lengths,
-         and vote chunks with empty, all-N, homopolymer and N-run rows, the
-         partition's two-zero-table layout and a 120 kb read in a
-         2^17-column chunk, whose unique windows overflow the vote's
-         shared memory.
+         its prepared index and weights; the vote, a grid of read tiles,
+         timed with a warm L2 and with the L2 flushed before each launch),
+         then at edge cases for k 6 and 12: a stream counted in chunks
+         across seams, rows with lengths, and vote chunks with empty,
+         all-N, homopolymer and N-run rows, the partition's two-zero-table
+         layout and a 120 kb read in a 2^17-column chunk, whose unique
+         windows overflow the vote's shared memory.
 Phase 5  `run --device cuda` (reads -> asm -> the large-indel, small-indel
          and complex-SV callers -> merged VCF) on the golden recipe of
          tests/test_golden_e2e.py (4 x 250 kb, every SV type, a
@@ -126,9 +128,14 @@ Phase 5  `run --device cuda` (reads -> asm -> the large-indel, small-indel
          (counted around call_complex_svs), which must include the
          haplotype pairing's edit distances at W = 128, the pair-HMM
          kernel's launches (76 at the golden recipe), the k-mer
-         kernels' and the MEC kernel's.  The run is traced
-         on the card (torch.profiler) for the device's busy time; with
-         --profile the host's ops too.
+         kernels' and the MEC kernel's; for each pair-HMM launch its real
+         pairs (0 < len <= R) of 8192 and how the group design's warps mix
+         lengths, for each vote launch its real reads of 64.  The run is
+         traced on the card (torch.profiler) for the device's busy time
+         and the pair-HMM's and the vote's device time a launch; with
+         --profile the host's ops too.  After the run the pair-HMM kernel
+         is held to the plain version and timed at the run's fullest
+         bucket.
 Phase 5b `run` with `--device cuda` and with `--device cpu` on
          tests/test_torch_run.py's recipe (2 x 50 kb, an INV, a DUP, a
          translocation and small indels, 20x): the merged VCF, the three
@@ -647,9 +654,10 @@ def _asm_args(d: str, out: str, device: str) -> list[str]:
 
 def _profile_summary(prof, wall_s: float) -> dict:
     """Device time by kernel name (ms) from a torch.profiler trace, the
-    summed device time and its share of the wall time, and the time of
+    summed device time and its share of the wall time, the time of
     PyTorch's indexing kernels (names holding "index": `index_add_`, the
-    gathers) with their names."""
+    gathers) with their names, and the pair-HMM's and the k-mer kernels'
+    time, launches and time a launch (`focus`)."""
     by_name = {}
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -663,9 +671,13 @@ def _profile_summary(prof, wall_s: float) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
     index = {k[:120]: v[0] for k, v in by_name.items()
              if "index" in k.lower()}
+    focus = {k[:120]: dict(ms=v[0], count=v[1], ms_per_launch=v[0] / v[1])
+             for k, v in by_name.items()
+             if "pairhmm" in k or "kmer_" in k or "unique_mask" in k}
     return dict(busy_ms=busy, wall_s=wall_s,
                 busy_share=busy / (wall_s * 1e3),
                 index_ms=sum(index.values()), index_kernels=index,
+                focus=focus,
                 kernels=[dict(name=k[:120], ms=v[0], count=v[1])
                          for k, v in top])
 
@@ -821,10 +833,11 @@ WATCHED = (("phasing.phase", "_mec_solve",
             lambda args: args[0].numel()))       # the widest read chunk
 # operations of one pair-HMM cell (phasing/realign.py::_viterbi_batch), the
 # least the recurrence needs: the match compare and the emission's select
-# (2); M: three transitions, their two maxes and the emission's add (6); I:
-# two transitions, their max and the insert emission (4); D: the column
-# offset, the running max and two adds (4).
-VITERBI_OPS_PER_CELL = 16
+# (2); M: two transition adds (max(i, d) + a_back rounds as max(i + a_back,
+# d + a_back) does), their two maxes and the emission's add (5); I: two
+# transitions, their max and the insert emission (4); D: the column offset,
+# the running max and two adds (4).
+VITERBI_OPS_PER_CELL = 15
 
 
 def _watch(calls: dict, kept: dict):
@@ -971,6 +984,28 @@ def _time_calls_ms(fn, runs: int = 5) -> float:
     return s.elapsed_time(e) / runs
 
 
+def _time_cold_ms(fn, runs: int = 10) -> float:
+    """Device milliseconds a call of `fn` with the L2 cold: before each
+    call a write of 128 MB (more than the 50 MB L2) evicts it, outside the
+    timed events; each call between its own events, queued behind a sleep
+    so that the host's launch cost is not timed; the mean of `runs`."""
+    import torch
+    flush = torch.empty(32 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(runs):
+        flush.fill_(1)
+        torch.cuda._sleep(2_000_000)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        total += s.elapsed_time(e)
+    return total / runs
+
+
 def _on(x, dev):
     return x.to(dev) if hasattr(x, "to") else x
 
@@ -1059,6 +1094,11 @@ def _viterbi_row(name: str, segs, lens, haps, err: float, W: int,
     B, R = segs.shape
     row = dict(name=name, B=B, R=R, W=W, err=err, bit_equal=True,
                max_abs_err=float(np.abs(got - plain).max()), cpu_ms=cpu_ms)
+    if W <= 1024:
+        G, C = realign.viterbi_group_shape(W)
+        row.update(design=f"group (G {G}, C {C})")
+    else:
+        row.update(design="block")
     if timed:
         ms = _time_queued_ms(lambda: realign._viterbi_batch(*card, **kw))
         plain_ms = _time_calls_ms(
@@ -1318,13 +1358,19 @@ def _kmer_rows(kept: dict) -> list[dict]:
     rows.append(row)
     (codes, lens, k, t4, u4), _ = kept["kmer_vote"]
     row = _kmer_check("kmer_vote", kmer.kmer_vote, [codes, lens, k, t4, u4])
+    vote = lambda: kmer.kmer_vote(codes, lens, k, t4, u4)     # noqa: E731
     row.update(
-        name="kmer_vote", shape=list(codes.shape), k=k,
-        ms=_time_queued_ms(lambda: kmer.kmer_vote(codes, lens, k, t4, u4)),
+        name="kmer_vote", design="tile", shape=list(codes.shape), k=k,
+        ms=_time_queued_ms(vote), cold_ms=_time_cold_ms(vote),
         plain_ms=_time_calls_ms(
             lambda: kmer._kmer_vote_plain(codes, lens, k, t4, u4)),
         library_ms=None, **_kmer_vote_bound(codes, lens, k, t4, u4))
     rows.append(row)
+    # the mask lookups' traffic if each moved a 32-byte sector: a computed
+    # bound, not a measurement, logged beside the bound's one byte a lookup
+    _log(f"phase 4b: kmer_vote bound with a 32-byte sector a mask lookup "
+         f"(computed, not measured): "
+         f"{32 * t4.shape[0] * row['valid'] / HBM_BYTES_PER_S * 1e3:.6f} ms")
     for r in rows:
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         _log(f"phase 4b: k-mer kernel {json.dumps(r)}")
@@ -1825,6 +1871,62 @@ def _watch_complex(shapes: list):
     return lambda: setattr(complex_sv, "call_complex_svs", fn)
 
 
+def _bucket_stats(lens, R: int, W: int) -> dict:
+    """One pair-HMM launch's (B,) lengths: its real pairs (0 < len <= R),
+    the group design's warps (32 / G pairs each) that hold one, those of
+    them whose lengths differ, and the rows the group design runs (a warp
+    its longest segment, for each of its pairs) over the rows the
+    segments need."""
+    import numpy as np
+
+    from volcanosv_tpu_torch.phasing import realign
+    G = realign.viterbi_group_shape(W)[0] if W <= 1024 else 32
+    real = np.where((lens > 0) & (lens <= R), lens, 0).astype(np.int64)
+    warps = np.pad(real, (0, -len(real) % (32 // G))).reshape(-1, 32 // G)
+    top = warps.max(axis=1)
+    live = top > 0
+    return dict(B=len(lens), R=R, W=W, G=G, real=int((real > 0).sum()),
+                warps=len(warps), live_warps=int(live.sum()),
+                mixed_warps=int((live & (warps.min(axis=1) != top)).sum()),
+                row_ratio=float(top.sum() * warps.shape[1]
+                                / max(1, real.sum())))
+
+
+def _watch_buckets(buckets: list, reads: list, kept: dict):
+    """Wrap realign.pairhmm_alleles (pileup imports it at each call) and
+    partition._read_codes, neither a kernel wrapper: `buckets` receives
+    `_bucket_stats` of each pair-HMM launch, `reads` the real reads of each
+    vote chunk, `kept` the inputs of the bucket with the most real pairs.
+    Returns the undo."""
+    from volcanosv_tpu_torch.partition import partition
+    from volcanosv_tpu_torch.phasing import realign
+    alleles, read_codes = realign.pairhmm_alleles, partition._read_codes
+
+    def watched_alleles(read_segs, seg_lens, hap_ref, hap_alt, error_rate,
+                        *a, **kw):
+        for lo in range(0, len(seg_lens), realign._BUCKET):
+            args = (read_segs, seg_lens, hap_ref, hap_alt, lo)
+            st = _bucket_stats(realign._bucket(*args)[1],
+                               read_segs.shape[1], hap_ref.shape[1])
+            buckets.append(st)
+            if st["real"] > kept.get("real", -1):
+                kept.update(real=st["real"], args=args, err=error_rate)
+        return alleles(read_segs, seg_lens, hap_ref, hap_alt, error_rate,
+                       *a, **kw)
+
+    def watched_codes(seqs, device):
+        out = read_codes(seqs, device)
+        reads.append(out[2])
+        return out
+    realign.pairhmm_alleles = watched_alleles
+    partition._read_codes = watched_codes
+
+    def undo():
+        realign.pairhmm_alleles = alleles
+        partition._read_codes = read_codes
+    return undo
+
+
 def _golden_gates(sim_dir: str, out: str, device: str = "cuda") -> dict:
     """tests/test_golden_e2e.py's gates on `run`'s outputs, through the
     port's eval: SVs (F1, recall >= 0.99, GT >= 0.98), small indels,
@@ -1922,6 +2024,7 @@ def phase5_run_golden(profile: bool) -> dict:
 
     from volcanosv_tpu_torch import cli
     from volcanosv_tpu_torch.ops import banded_align as ba
+    from volcanosv_tpu_torch.phasing import realign
     from volcanosv_tpu_torch.utils.logging import STAGE_TIMES, stage_report
     d = os.path.join(WORK, "golden")
     sim_dir, out = os.path.join(d, "sim"), os.path.join(d, "out")
@@ -1936,6 +2039,8 @@ def phase5_run_golden(profile: bool) -> dict:
                                  "tests/data/golden_truth.vcf")
     complex_shapes = []
     undo = _watch_complex(complex_shapes)
+    buckets, vote_reads, fullest = [], [], {}
+    undo_buckets = _watch_buckets(buckets, vote_reads, fullest)
     STAGE_TIMES.clear()
     # always traced on the card, for the busy time; --profile adds the
     # host's ops
@@ -1953,6 +2058,7 @@ def phase5_run_golden(profile: bool) -> dict:
             run_s = time.perf_counter() - t0
     finally:
         undo()
+        undo_buckets()
     kernel_launches = _counts()
     pairhmm_shapes = _shape_counts(_wrappers()["pairhmm_viterbi"].shapes,
                                    ("B", "R", "W"))
@@ -1989,6 +2095,17 @@ def phase5_run_golden(profile: bool) -> dict:
          f"phase 5: banded_dp launches inside complex-sv "
          f"{json.dumps(cx_shapes)}\n" + stage_report())
     profile_info = _profile_summary(prof, run_s)
+    mixed = sum(b["mixed_warps"] for b in buckets)
+    _log(f"phase 5: pair-HMM launches, real pairs of B and the group "
+         f"design's warps (mixed: lengths differ) {json.dumps(buckets)}; "
+         f"{mixed} mixed warps in {len(buckets)} launches\n"
+         f"phase 5: vote launches, real reads of 64 {vote_reads}\n"
+         f"phase 5: device time of the pair-HMM and k-mer kernels "
+         f"{json.dumps(profile_info['focus'])}")
+    # the pair-HMM kernel at the run's fullest bucket, untraced
+    golden_bucket = _viterbi_row(
+        "the golden run's fullest bucket", *realign._bucket(*fullest["args"]),
+        fullest["err"], fullest["args"][2].shape[1], True)
     _log(f"phase 5: device busy {profile_info['busy_ms']:.1f} ms of "
          f"{run_s:.1f} s; profile {json.dumps(profile_info)}")
     gates = _golden_gates(sim_dir, out)
@@ -1996,6 +2113,8 @@ def phase5_run_golden(profile: bool) -> dict:
     return dict(run_s=run_s, sim_s=sim_s, stages=stages, launches=launches,
                 kernel_launches=kernel_launches,
                 pairhmm_viterbi_shapes=pairhmm_shapes,
+                pairhmm_buckets=buckets, golden_bucket=golden_bucket,
+                vote_reads=vote_reads,
                 kmer_shapes=kmer_shapes, pinned=pinned,
                 busy_ms=profile_info["busy_ms"],
                 banded_dp_shapes=dp_shapes, tb_walk_shapes=walk_shapes,
@@ -2561,18 +2680,25 @@ def _scan_kernel_entries(info: dict, rng) -> list[dict]:
         head = _viterbi_row("the golden run's top shape", segs, lens, haps,
                             0.002, W, True)
         vrows = vrows + [head]
+    run = info["run"]
+    focus = run["profile"]["focus"]
     entries = [dict(
         name="pairhmm_viterbi", route="cuda",
         source="volcanosv_tpu_torch/csrc/pairhmm.cu",
         replaces="volcanosv_tpu/phasing/realign.py:35",
-        path="run (golden sim)",
-        launches=info["run"]["kernel_launches"]["pairhmm_viterbi"],
+        path="run (golden sim)", design=head["design"],
+        launches=run["kernel_launches"]["pairhmm_viterbi"],
         launches_asm_clr=info["asm_cuda_vs_cpu"]["clr"]["kernel_launches"][
             "pairhmm_viterbi"],
         max_abs_err=max(r["max_abs_err"] for r in vrows), ms=head["ms"],
-        plain_ms=head["plain_ms"], cpu_ms=head["cpu_ms"],
-        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-        library_ms=None, shapes=vrows)]
+        plain_ms=head["plain_ms"],
+        cpu_ms=head["cpu_ms"], bound_ms=head["bound_ms"],
+        bound_by=head["bound_by"], library_ms=None,
+        golden_bucket=run["golden_bucket"],
+        real_pairs=[b["real"] for b in run["pairhmm_buckets"]],
+        mixed_warps=sum(b["mixed_warps"] for b in run["pairhmm_buckets"]),
+        trace={k: v for k, v in focus.items() if "pairhmm" in k},
+        shapes=vrows)]
     hmm = info["qc_sd"]["hmm"]
     qc_sd = [info["qc_sd"][k]["launches"] for k in ("qc", "asm_sd")]
     for kind, line in (("viterbi", 120), ("posteriors", 146)):
@@ -2603,10 +2729,17 @@ def _kmer_kernel_entries(info: dict) -> list[dict]:
                 "kmer_vote": "volcanosv_tpu/ops/kmer.py:100"}
     rows = info["asm_cuda_vs_cpu"]["kmer"]
     edges = info["asm_cuda_vs_cpu"]["kmer_edges"]
+    focus = info["run"]["profile"]["focus"]
     entries = []
     for row in rows:
         name = row["name"]
         mine = [e for e in edges if e["name"] == name]
+        extra = {}
+        if name == "kmer_vote":
+            extra = dict(
+                design=row["design"], cold_ms=row["cold_ms"],
+                real_reads=info["run"]["vote_reads"],
+                trace={k: v for k, v in focus.items() if "kmer_vote" in k})
         entries.append(dict(
             name=name, **src, replaces=replaces[name],
             path="run (golden sim)",
@@ -2616,7 +2749,7 @@ def _kmer_kernel_entries(info: dict) -> list[dict]:
                                                     for e in mine]),
             ms=row["ms"], plain_ms=row["plain_ms"], cpu_ms=row["cpu_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"], shapes=[row] + mine))
+            library_ms=row["library_ms"], **extra, shapes=[row] + mine))
     return entries
 
 

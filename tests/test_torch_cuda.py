@@ -17,10 +17,12 @@ tracebacks with long gaps and on random tracebacks, at the bucketed, the
 full and a cut step bound: packed streams and done flags bit-equal.
 
 The pair-HMM Viterbi kernel (csrc/pairhmm.cu) is held to its plain
-version on the card over batches of 1 to 8192 pairs, W 9 to 1024 (a warp
-a pair) and 1025 to 4096 (a block a pair, the rows in shared memory or,
-at 4096, in a device scratch), and three error rates: fp32 scores
-bit-equal (tolerance 0).  The coverage
+version on the card over batches of 1 to 8192 pairs, W 1 to 1024 (the
+group design, G lanes a pair, on both sides of every (G, C) switch
+point) and 1025 to 4096 (a block
+a pair, the rows in shared memory or, at 4096, in a device scratch),
+warps that mix empty, full and short segments and N bases, and three
+error rates: fp32 scores bit-equal (tolerance 0).  The coverage
 HMM's kernels (csrc/coverage_hmm.cu) are held to theirs over S 3-5 and
 T 1, 2 and 4970 on ragged, tie-rich batches: labels equal; posteriors no
 further from a float64 forward-backward than 1e-5 or twice the CPU plain
@@ -31,7 +33,9 @@ The k-mer kernels (csrc/kmer.cu: count, unique mask, vote) are held to
 their plain versions at k 6 and 12 on tests/torch_inputs.py's cases: a
 stream counted chunk by chunk across the seams, rows with lengths, vote
 chunks with empty, all-N, homopolymer and N-run rows, two zero tables,
-and a 120 kb read in a 2^17-column chunk: integers, equal exactly.
+a 120 kb read in a 2^17-column chunk, and rows across the vote's tile
+seams (a unique k-mer's run across two seams, one k-mer in two tiles,
+partial and one-window tiles): integers, equal exactly.
 
 The MEC votes' kernel (csrc/mec.cu) is held to its plain version on
 tests/torch_inputs.py's MEC edge cases, at `asm`'s shape with n_iter 0, 3
@@ -54,8 +58,9 @@ from volcanosv_tpu_torch.ops import kmer
 from volcanosv_tpu_torch.phasing import phase, realign
 from volcanosv_tpu_torch.qc import flagger
 from torch_inputs import (MEC_EDGES, VITERBI_EDGES, hmm_tie_case,
-                          kmer_count_case, kmer_vote_case, mec_case,
-                          mec_edge_case, mec_restart_mecs, viterbi_edge_case,
+                          kmer_count_case, kmer_tile_case, kmer_vote_case,
+                          mec_case, mec_edge_case, mec_restart_mecs,
+                          viterbi_edge_case, viterbi_mixed_case,
                           viterbi_pairs)
 
 DUAL = ba.Scores(match=2, mismatch=-4, gap_open=-4, gap_extend=-2,
@@ -439,6 +444,35 @@ def _check_viterbi_kernel(cuda, segs, lens, haps, err, W):
     assert realign._viterbi_batch.shapes == [segs.shape + (W,)]
 
 
+def _group_widths():
+    """W on both sides of every switch of the group design's (G, C), and
+    1, 9, 41, 64, 200 and 1024 (pure Python: no card involved)."""
+    shape = {W: realign.viterbi_group_shape(W) for W in range(1, 1025)}
+    switch = [W for W in range(2, 1025) if shape[W] != shape[W - 1]]
+    return sorted({w for W in switch for w in (W - 1, W)}
+                  | {1, 9, 41, 64, 200, 1024})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", _group_widths())
+def test_pairhmm_group_design_at_every_switch(cuda, W):
+    """Batches of 1, 3 and 37 pairs (a part of a warp's groups) at each
+    width: the group design bit-equal to the plain version."""
+    for B in (1, 3, 37):
+        segs, lens, haps = viterbi_pairs(np.random.default_rng(W * 64 + B),
+                                         B, W + 16, W, 0.1)
+        _check_viterbi_kernel(cuda, segs, lens, haps, 0.1, W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [9, 41, 64, 100])
+def test_pairhmm_group_design_mixed_warps(cuda, W):
+    """Warps whose groups hold empty, full and short segments, N bases in
+    segments and an all-N segment: each group's score on its own last
+    row, bit-equal to the plain version."""
+    _check_viterbi_kernel(cuda, *viterbi_mixed_case(W))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("err", [0.002, 0.1, 0.3])
 @pytest.mark.parametrize("W", [9, 41, 64, 200])
@@ -469,7 +503,7 @@ def test_pairhmm_kernel_edge_batches(cuda, case):
 @pytest.mark.parametrize("B,R,W", [(37, 1041, 1025), (16, 2064, 2048),
                                    (300, 64, 4096), (4, 4112, 4096)])
 def test_pairhmm_block_design_matches_plain(cuda, B, R, W):
-    """Windows past the warp design's 1024 columns: a block a pair, the
+    """Windows past the group design's 1024 columns: a block a pair, the
     rows in shared memory (1025, 2048) or in a device scratch (4096; 300
     pairs stride over the scratch's blocks)."""
     segs, lens, haps = viterbi_pairs(np.random.default_rng(W + B), B, R, W,
@@ -776,6 +810,26 @@ def test_kmer_unique_mask_and_vote_kernels_match_plain(cuda, k, case):
     if case == "long_row" and k == 12:
         h, v = kmer._valid_windows(c[:1], k, ln[:1])
         assert u[:, h[v].long()].any(dim=0).sum() > 8192
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [6, 12])
+def test_kmer_vote_tile_seams(cuda, k):
+    """The vote's tile design across its seams (torch_inputs.py::
+    kmer_tile_case: a unique k-mer's run across two seams, one unique
+    k-mer in two tiles of a read, reads shorter than k, empty and all-N
+    rows, partial, full and one-window last tiles): equal to the plain
+    version on the card and on the CPU."""
+    codes, lens, tables = kmer_tile_case(k + 7, k)
+    c, ln, t = (torch.from_numpy(x).to(cuda) for x in (codes, lens, tables))
+    u = kmer.unique_mask(t)
+    got = _launched(kmer.kmer_vote, lambda: kmer.kmer_vote(c, ln, k, t, u))
+    assert torch.equal(got, kmer._kmer_vote_plain(c, ln, k, t, u))
+    assert torch.equal(got.cpu(), kmer.kmer_vote(
+        *(x.cpu() for x in (c, ln)), k, t.cpu(), u.cpu()))
+    # the homopolymer k-mer's table count (7) enters row 1 once
+    runs = 3000 - k + 1
+    assert int(got[1, 0]) >= runs + 7
 
 
 @pytest.mark.cuda

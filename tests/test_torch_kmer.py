@@ -1,7 +1,8 @@
 """The k-mer partition's kernel wrappers (ops/kmer.py: kmer_count_into,
 unique_mask, kmer_vote) against the JAX package's jitted k-mer functions,
 on the CPU, where each wrapper runs its plain version.  Inputs are seeded
-numpy (tests/torch_inputs.py: kmer_count_case, kmer_vote_case), the same
+numpy (tests/torch_inputs.py: kmer_count_case, kmer_vote_case,
+kmer_tile_case), the same
 the card tests hold the kernels to; k = 6 and 12.  All outputs are
 integers: equal exactly.
 
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_inputs import kmer_count_case, kmer_vote_case
+from torch_inputs import kmer_count_case, kmer_tile_case, kmer_vote_case
 from volcanosv_tpu.ops import kmer as ref_kmer
 from volcanosv_tpu_torch.ops import kmer
 
@@ -95,6 +96,23 @@ def test_unique_mask_and_kmer_vote_match_jax(k, zero_tables):
     assert want[:10].sum() > 0
     if zero_tables:
         assert (want[:, 2:] == 0).all()
+
+
+@pytest.mark.parametrize("k", [6, 12])
+def test_kmer_vote_matches_jax_across_tile_seams(k):
+    """Rows across the card's vote tiles (2048 windows): a unique k-mer's
+    run across two seams, one unique k-mer in two tiles, reads shorter
+    than k, empty and all-N rows, partial and one-window last tiles: votes
+    equal to the JAX package's, the homopolymer k-mer's table count once
+    in row 1."""
+    codes, lens, tables = kmer_tile_case(k + 7, k)
+    want, _ = _ref_vote(codes, lens, k, tables)
+    t = torch.from_numpy(tables)
+    got = kmer.kmer_vote(torch.from_numpy(codes), torch.from_numpy(lens),
+                         k, t, kmer.unique_mask(t))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[[3, 4, 7]] == 0).all()
+    assert want[1, 0] >= (3000 - k + 1) + 7
 
 
 def test_wrappers_run_plain_versions_for_cpu_tensors(monkeypatch):

@@ -31,7 +31,8 @@ from volcanosv_tpu_torch.phasing import phase, pileup, realign, snp_vcf
 from volcanosv_tpu_torch.utils import threefry
 from tests.test_realign import _mk_ref, _reads
 from torch_inputs import (VITERBI_EDGES, ensure_reference_native_lib,
-                          viterbi_edge_case, viterbi_pairs)
+                          viterbi_edge_case, viterbi_mixed_case,
+                          viterbi_pairs)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -114,9 +115,75 @@ def test_viterbi_plain_bit_equal_on_edge_batches(case):
         got.view(np.int32))
 
 
+@pytest.mark.parametrize("W", [9, 41, 64])
+def test_viterbi_plain_bit_equal_on_mixed_warps(W):
+    """The plain version against the JAX package on the batches whose
+    group-design warps mix empty, full and short segments and read N bases
+    (torch_inputs.py::viterbi_mixed_case, held on the card too): fp32
+    scores bit-equal."""
+    segs, lens, haps, err, W = viterbi_mixed_case(W)
+    p = ref_realign.PairHmmParams(err)
+    kw = dict(W=W, log_match=p.log_match, log_mis=p.log_mis,
+              log_ins=p.log_ins, a_mm=p.a_mm, a_gap=p.a_gap, a_ext=p.a_ext,
+              a_back=p.a_back)
+    want = np.asarray(ref_realign._viterbi_batch(
+        jnp.asarray(segs), jnp.asarray(lens), jnp.asarray(haps), **kw))
+    got = realign._viterbi_batch(
+        *(torch.from_numpy(x) for x in (segs, lens, haps)), **kw).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+def test_viterbi_group_shape():
+    """The group design's (G, C) at every W it takes: G lanes a pair (4,
+    8, 16 or 32, the least with 8 G >= W), C columns a lane with G * C >=
+    W, one of the kernel's instances, 8 and 6 at the path's W = 41."""
+    instances = {(4, c) for c in range(1, 9)} | \
+        {(g, c) for g in (8, 16) for c in range(5, 9)} | \
+        {(32, c) for c in (5, 6, 7, 8, 12, 16, 24, 32)}
+    seen = set()
+    for W in range(1, 1025):
+        G, C = realign.viterbi_group_shape(W)
+        assert G == min(g for g in (4, 8, 16, 32) if 8 * g >= W or g == 32)
+        assert G * C >= W and (G, C) in instances
+        assert G == 32 and C > 8 or C == -(-W // G)
+        seen.add((G, C))
+    assert seen == instances
+    assert realign.viterbi_group_shape(41) == (8, 6)
+    for W in (0, 1025):
+        with pytest.raises(ValueError):
+            realign.viterbi_group_shape(W)
+
+
+def test_bucket_is_one_launch_of_ref_then_alt():
+    """`_bucket`, the pairs of one kernel launch of `pairhmm_alleles`:
+    the bucket's segments and lengths twice, its REF windows then its ALT
+    windows, each half padded to _BUCKET with empty pairs (codes 4,
+    length 0); a bucket at 4096 holds the pairs from 4096 on."""
+    rng = np.random.default_rng(3)
+    N, R, W = realign._BUCKET + 5, 12, 7
+    segs = rng.integers(0, 5, (N, R)).astype(np.int8)
+    lens = rng.integers(0, R + 1, N).astype(np.int64)
+    ref, alt = (rng.integers(0, 5, (N, W)).astype(np.int8) for _ in "ra")
+    n = realign._BUCKET
+    for lo, real in ((0, n), (n, 5)):
+        s, ln, h = realign._bucket(segs, lens, ref, alt, lo)
+        assert s.shape == (2 * n, R) and h.shape == (2 * n, W)
+        assert ln.dtype == np.int32 and ln.shape == (2 * n,)
+        for half, hap in ((0, ref), (n, alt)):
+            np.testing.assert_array_equal(s[half:half + real],
+                                          segs[lo:lo + real])
+            np.testing.assert_array_equal(ln[half:half + real],
+                                          lens[lo:lo + real])
+            np.testing.assert_array_equal(h[half:half + real],
+                                          hap[lo:lo + real])
+            assert (s[half + real:half + n] == 4).all()
+            assert (h[half + real:half + n] == 4).all()
+            assert (ln[half + real:half + n] == 0).all()
+
+
 def test_pairhmm_alleles_match_at_flank_600(monkeypatch):
     """`PhasingConfig(realign_flank=600)`'s window, W = 1201 (past the
-    card's warp design, which took W <= 1024): 200 read segments of up to
+    card's group design, which takes W <= 1024): 200 read segments of up to
     96 bases over the window's centre, from the REF or the ALT haplotype
     (the centre base changed) with 5% substitutions; the allele calls equal
     the JAX package's.  Both packages score in buckets of 128 pairs here

@@ -58,6 +58,61 @@ def viterbi_edge_case(name):
     return segs, lens, haps, err, W
 
 
+def viterbi_mixed_case(W, B=64):
+    """A pair-HMM batch whose warps mix segment lengths (segs, lens, haps,
+    err, W), R = W + 16: lengths cycle through 0, R, 1, 3, W // 2, R - 1
+    and W, so every group design's warp (4 to 8 pairs at W <= 64) holds
+    empty, full and short segments side by side; a quarter of the pairs
+    read N bases inside their segments (1 in 8), and pair 5's segment is
+    all N."""
+    R = W + 16
+    rng = np.random.default_rng(W)
+    segs, lens, haps = viterbi_pairs(rng, B, R, W, 0.1)
+    cycle = [0, R, 1, 3, W // 2, R - 1, W]
+    for b in range(B):
+        n = cycle[b % len(cycle)]
+        lens[b] = n
+        segs[b, n:] = 4
+        segs[b, :n] = haps[b, rng.integers(0, W, n)]
+        if b % 4 == 1:
+            segs[b, :n][rng.random(n) < 0.125] = 4
+    segs[5, :lens[5]] = 4
+    return segs, lens, haps, 0.1, W
+
+
+# the vote kernel hashes 2048 windows a block (csrc/kmer.cu's TILE)
+VOTE_TILE = 2048
+
+
+def kmer_tile_case(seed, k):
+    """A vote chunk across the vote kernel's tile seams: (codes (8, 8192) int8,
+    lens (8,) int32, tables (4, 4^k) int32), on kmer_vote_case's tables
+    and reads (table 0 alone holds the homopolymer k-mer, hash 0).  Rows:
+    0, the case's reads joined to fill the row (the last tile partial);
+    1, 6000 bases with a run of 3000 A across the seams at 2048 and 4096
+    (one unique k-mer, its table count added once); 2, 5000 bases with k +
+    2 A at 300 and again at 3000 (one unique k-mer in two tiles); 3, k - 1
+    bases (no window); 4, empty; 5, 4096 + k - 1 bases (exactly two full
+    tiles); 6, 2048 + k bases (a second tile of one window); 7, 3000 N."""
+    codes0, lens0, tables = kmer_vote_case(seed, k)
+    joined = np.concatenate([codes0[i, :lens0[i]] for i in range(10)]
+                            + [codes0[-1, :lens0[-1]]] * 3)
+    L = 8192
+    rows = [joined[:L].copy(), joined[100:6100].copy(),
+            joined[200:5200].copy(), joined[:k - 1].copy(),
+            np.zeros(0, np.int8), joined[:VOTE_TILE * 2 + k - 1].copy(),
+            joined[:VOTE_TILE + k].copy(), np.full(3000, 4, np.int8)]
+    rows[1][1500:4500] = 0
+    for at in (300, 3000):
+        rows[2][at:at + k + 2] = 0
+    codes = np.full((len(rows), L), 4, np.int8)
+    lens = np.zeros(len(rows), np.int32)
+    for i, r in enumerate(rows):
+        codes[i, :len(r)] = r
+        lens[i] = len(r)
+    return codes, lens, tables
+
+
 # the coverage HMM's state-multiplier ladders (qc/flagger.py::state_mults)
 STATE_MULTS = {3: [0.05, 1.0, 2.0], 4: [0.05, 0.5, 1.0, 2.0],
                5: [0.05, 0.5, 1.0, 2.0, 4.0]}

@@ -35,20 +35,35 @@
 // bits.  One fused elementwise pass (the plain version: k shift-or steps,
 // each its own op).  Bound: 8 bytes an element.
 //
-// kmer_vote_kernel: (B, H) int32,
+// The read vote: (B, H) int32,
 //   score[b, j] = sum over distinct valid k-mers x of read b with
 //                 unique[j, x] of (count of x in read b + tables[j, x]).
-// A k-mer is unique to at most one table, so the first term is the number
-// of read b's valid windows unique to table j, and the second needs each
-// distinct such x once.  One block a read: the block hashes the windows
-// (RUN a thread), looks each up in the H mask rows, counts it into a
-// shared score, and appends x to a list (shared memory, or past SMEM_KEYS
-// entries a global scratch row the wrapper allocates).  Only these windows
-// are kept: in a read they are the few that span a haplotype's variants.
-// The list is sorted (bitonic, padded to a power of two with INT_MAX), and
-// the first entry of each run adds tables[j, x] once.  Bound: the codes and
-// the mask lookups (H bytes a valid window), a table read a distinct
-// unique k-mer.
+// The first term is the number of read b's valid windows whose k-mer is
+// unique to table j, and the second needs each distinct such x once.
+// Bound: the codes, the mask lookups (H bytes a valid window) and a table
+// read a distinct unique k-mer.  The lookups land at random places in the
+// (H, 4^k) mask (67 MB at k 12 and H 4, more than the 50 MB L2; on the path
+// it has just been written by unique_mask and is partly cold), and they
+// take most of the kernel's time; what limits them on the card is not
+// measured yet.
+//
+// kmer_vote_tile_kernel (it replaced a first design, a block a read that
+// sorted its list; both designs' times are in PERF.md): a grid of (read,
+// tile of TILE windows) blocks, so a chunk of 64 reads of 16384 columns is
+// 512 blocks on 132 SMs; a tile hashes its windows and reads the k - 1
+// codes past its end, so each window is hashed once.  A thread rolls the
+// hashes of its VOTE_RUN windows first, then issues every mask load of every
+// window (all H rows, HB at a time, no early exit) before it tests any:
+// the loads' latencies overlap instead of adding up.  A window unique to
+// table j adds one to the block's count j; its k-mer goes to the block's
+// list in shared memory, then with one atomic a block to the read's list in
+// the scratch, and the counts to the read's (H + 2)-int header (counts, list
+// length, ticket; zeroed by the launcher).  The block that takes the read's
+// last ticket (after __threadfence) counts the table term once a distinct
+// k-mer: a hash set of the read's list, in shared memory up to HASH_KEYS
+// entries, else in the scratch after the list; the first insert of x adds
+// tables[j, x] for each j with unique[j, x].  Integer sums, so the order of
+// the atomics changes nothing.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -61,9 +76,13 @@ constexpr int COUNT_THREADS = 256;
 constexpr int COUNT_TILE = RUN * COUNT_THREADS;
 constexpr int UNIQUE_THREADS = 256;
 constexpr int VOTE_RUN = 8;               // windows a thread walks (vote)
-constexpr int VOTE_THREADS = 512;
-constexpr int SMEM_KEYS = 8192;           // 32 KB of list a block
 constexpr int MAX_H = 32;
+constexpr int TILE_THREADS = 256;
+constexpr int TILE = TILE_THREADS * VOTE_RUN;   // windows a tile block
+constexpr int HASH_SLOTS = 4096;          // the last block's set (16 KB)
+constexpr int HASH_KEYS = HASH_SLOTS / 2; // the most list entries it takes
+constexpr int HB = 4;                     // mask rows loaded together
+constexpr int EMPTY = -1;                 // a free slot (k-mers are >= 0)
 
 __device__ __forceinline__ uint32_t kmask(int k) {
   return (1u << (2 * k)) - 1u;
@@ -126,88 +145,131 @@ canonical_hashes_kernel(const uint32_t* __restrict__ in, long long n, int k,
   }
 }
 
-// the table x is unique to, or -1
-__device__ __forceinline__ int unique_of(const uint8_t* __restrict__ unique,
-                                         int H, long long N, uint32_t x) {
-  for (int j = 0; j < H; ++j)
-    if (unique[j * N + x]) return j;
-  return -1;
-}
-
-__global__ void __launch_bounds__(VOTE_THREADS)
-kmer_vote_kernel(const int8_t* __restrict__ codes,
-                 const int* __restrict__ lens, int L, int k,
-                 const int* __restrict__ tables,
-                 const uint8_t* __restrict__ unique, int H, long long N,
-                 int cap, int* __restrict__ scratch, long long scratch_row,
-                 int* __restrict__ out) {
-  extern __shared__ int smem[];
-  int* keys_s = smem;                     // cap entries
-  int* score = smem + cap;                // H entries
-  int* count = score + H;                 // 1 entry
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  int* keys_g = scratch ? scratch + b * scratch_row : nullptr;
-  if (tid < H) score[tid] = 0;
-  if (tid == 0) *count = 0;
-  __syncthreads();
-  const int limit = min(L - k + 1, lens[b] - k + 1);
-  const int8_t* row = codes + (size_t)b * L;
-  for (int w0 = tid * VOTE_RUN; w0 < limit; w0 += VOTE_THREADS * VOTE_RUN) {
-    const int w1 = min(w0 + VOTE_RUN, limit);
-    uint32_t h = 0;
-    int last_n = -1;
-    for (int p = w0; p < w0 + k - 1; ++p) roll(row, p, k, h, last_n);
-    for (int w = w0; w < w1; ++w) {
-      roll(row, w + k - 1, k, h, last_n);
-      if (last_n >= w) continue;
-      const int j = unique_of(unique, H, N, h);
-      if (j < 0) continue;
-      atomicAdd(score + j, 1);            // the run length, a window at a time
-      const int slot = atomicAdd(count, 1);
-      if (slot < cap) keys_s[slot] = (int)h;
-      else keys_g[slot] = (int)h;         // slot < n <= scratch_row
-    }
-  }
-  __syncthreads();
-  const int m = *count;
-  int* keys = keys_s;
-  if (m > cap) {                          // sort the whole list in scratch
-    for (int i = tid; i < cap; i += VOTE_THREADS) keys_g[i] = keys_s[i];
-    keys = keys_g;
-  }
-  int m2 = 1;
-  while (m2 < m) m2 <<= 1;
-  for (int i = m + tid; i < m2; i += VOTE_THREADS) keys[i] = INT_MAX;
-  __syncthreads();
-  for (int size = 2; size <= m2; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int i = tid; i < (m2 >> 1); i += VOTE_THREADS) {
-        const int lo = 2 * stride * (i / stride) + (i % stride);
-        const int hi = lo + stride;
-        const int a = keys[lo], c = keys[hi];
-        if ((a > c) == ((lo & size) == 0)) {
-          keys[lo] = c;
-          keys[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = tid; i < m; i += VOTE_THREADS) {
-    const int x = keys[i];
-    if (i > 0 && keys[i - 1] == x) continue;
-    const int j = unique_of(unique, H, N, (uint32_t)x);
-    atomicAdd(score + j, tables[j * N + x]);
-  }
-  __syncthreads();
-  if (tid < H) out[b * H + tid] = score[tid];
-}
-
 int pow2ceil(int n) {
   int p = 1;
   while (p < n) p <<= 1;
   return p;
+}
+
+__device__ __forceinline__ int pow2ceil_d(int n) {
+  return n <= 1 ? 1 : 1 << (32 - __clz(n - 1));
+}
+
+// int32 entries of a read's row of the vote's scratch: its list (n
+// windows at most), then, when a list may pass HASH_KEYS, a hash set of a
+// power of two >= 2n slots
+long long tile_row(int n) {
+  return n + (n > HASH_KEYS ? 2LL * pow2ceil(n) : 0);
+}
+
+__global__ void __launch_bounds__(TILE_THREADS)
+kmer_vote_tile_kernel(const int8_t* __restrict__ codes,
+                      const int* __restrict__ lens, int B, int L, int k,
+                      const int* __restrict__ tables,
+                      const uint8_t* __restrict__ unique, int H, long long N,
+                      int tiles, int* __restrict__ scratch, long long row,
+                      int* __restrict__ out) {
+  __shared__ int keys_s[HASH_SLOTS];        // the tile's list, then the set
+  __shared__ int score_s[MAX_H];
+  __shared__ int count_s, base_s, last_s;
+  const int b = blockIdx.x / tiles;
+  const int tile = blockIdx.x - b * tiles;
+  const int tid = threadIdx.x;
+  const int limit = min(L - k + 1, lens[b] - k + 1);
+  const int my_tiles = limit > 0 ? (limit + TILE - 1) / TILE : 1;
+  if (tile >= my_tiles) return;             // past the read: the whole block
+  int* acc = scratch + (size_t)b * (H + 2); // the read's counts
+  int* list_len = acc + H;
+  int* ticket = acc + H + 1;
+  int* list_g = scratch + (size_t)B * (H + 2) + (size_t)b * row;
+  if (tid < H) score_s[tid] = 0;
+  if (tid == 0) count_s = 0;
+  __syncthreads();
+  // the hashes of this thread's windows, then every mask load of them
+  const int w0 = tile * TILE + tid * VOTE_RUN;
+  const int8_t* rowp = codes + (size_t)b * L;
+  uint32_t x[VOTE_RUN];
+  bool ok[VOTE_RUN];
+  {
+    uint32_t h = 0;
+    int last_n = -1;
+    if (w0 < limit)
+      for (int p = w0; p < w0 + k - 1; ++p) roll(rowp, p, k, h, last_n);
+#pragma unroll
+    for (int i = 0; i < VOTE_RUN; ++i) {
+      const int w = w0 + i;
+      ok[i] = false;
+      x[i] = 0;
+      if (w < limit) {
+        roll(rowp, w + k - 1, k, h, last_n);
+        ok[i] = last_n < w;
+        x[i] = h;
+      }
+    }
+  }
+  uint32_t hits[VOTE_RUN];
+#pragma unroll
+  for (int i = 0; i < VOTE_RUN; ++i) hits[i] = 0;
+  for (int jb = 0; jb < H; jb += HB) {
+    uint8_t u[VOTE_RUN][HB];
+#pragma unroll
+    for (int i = 0; i < VOTE_RUN; ++i)
+#pragma unroll
+      for (int jj = 0; jj < HB; ++jj)
+        u[i][jj] = ok[i] && jb + jj < H
+                       ? unique[(size_t)(jb + jj) * N + x[i]] : 0;
+#pragma unroll
+    for (int i = 0; i < VOTE_RUN; ++i)
+#pragma unroll
+      for (int jj = 0; jj < HB; ++jj)
+        if (u[i][jj]) hits[i] |= 1u << (jb + jj);
+  }
+#pragma unroll
+  for (int i = 0; i < VOTE_RUN; ++i) {
+    if (!hits[i]) continue;
+    for (uint32_t m = hits[i]; m; m &= m - 1)
+      atomicAdd(score_s + __ffs(m) - 1, 1); // a window at a time
+    keys_s[atomicAdd(&count_s, 1)] = (int)x[i];
+  }
+  __syncthreads();
+  const int n_tile = count_s;
+  if (tid == 0) base_s = n_tile ? atomicAdd(list_len, n_tile) : 0;
+  if (tid < H && score_s[tid]) atomicAdd(acc + tid, score_s[tid]);
+  __syncthreads();
+  for (int i = tid; i < n_tile; i += TILE_THREADS)
+    list_g[base_s + i] = keys_s[i];
+  __threadfence();                          // the list and counts, then
+  __syncthreads();                          // the ticket
+  if (tid == 0) last_s = atomicAdd(ticket, 1) == my_tiles - 1;
+  __syncthreads();
+  if (!last_s) return;
+  // the read's last block: the table term once a distinct k-mer
+  __threadfence();
+  const int m = *(volatile int*)list_len;
+  int* set = m <= HASH_KEYS ? keys_s : list_g + (L - k + 1);
+  const int slots = max(2, pow2ceil_d(2 * m));
+  const int bits = 31 - __clz(slots);
+  if (tid < H) score_s[tid] = 0;
+  for (int i = tid; i < slots; i += TILE_THREADS) set[i] = EMPTY;
+  __syncthreads();
+  for (int i = tid; i < m; i += TILE_THREADS) {
+    const int xk = __ldcg(list_g + i);
+    uint32_t s = ((uint32_t)xk * 2654435761u) >> (32 - bits);
+    while (true) {
+      const int was = atomicCAS(set + s, EMPTY, xk);
+      if (was == EMPTY) {                   // the first of x in the read
+        for (int j = 0; j < H; ++j)
+          if (unique[(size_t)j * N + xk])
+            atomicAdd(score_s + j, tables[(size_t)j * N + xk]);
+        break;
+      }
+      if (was == xk) break;
+      s = (s + 1) & (slots - 1);
+    }
+  }
+  __syncthreads();
+  if (tid < H)
+    out[(size_t)b * H + tid] = *(volatile int*)(acc + tid) + score_s[tid];
 }
 
 }  // namespace
@@ -258,35 +320,41 @@ extern "C" int canonical_hashes_launch(const void* in, long long n, int k,
   return (int)cudaGetLastError();
 }
 
-// int32 entries of the global scratch kmer_vote_launch needs a read (0 when
-// every read's list fits in shared memory): a power of two >= L - k + 1.
-extern "C" long long kmer_vote_scratch_row(int L, int k) {
+// int32 entries of device scratch kmer_vote_launch needs: B headers of H +
+// 2 and B rows of tile_row(n), n = L - k + 1 windows a read.
+extern "C" long long kmer_vote_scratch_ints(int B, int L, int k, int H) {
   const int n = L - k + 1;
-  return n <= SMEM_KEYS ? 0 : pow2ceil(n);
+  if (B <= 0 || n <= 0) return 0;
+  return (long long)B * (H + 2 + tile_row(n));
 }
 
 // The vote of B reads on `stream`: codes (B, L) int8, lens (B,) int32,
 // tables (H, N = 4^k) int32, unique (H, N) bool (one byte each), out (B, H)
-// int32; scratch (B, scratch_row) int32 as kmer_vote_scratch_row asks (or
-// null); 1 <= k <= 15, L >= k, 1 <= H <= 32.  Returns the cudaError_t of
-// the launch.
+// int32; scratch of scratch_ints int32 entries as kmer_vote_scratch_ints
+// asks; 1 <= k <= 15, L >= k, 1 <= H <= 32.  The scratch's headers are
+// zeroed first (a memset on `stream`).  Returns the cudaError_t of the
+// launch.
 extern "C" int kmer_vote_launch(const void* codes, const void* lens, int B,
                                 int L, int k, const void* tables,
                                 const void* unique, int H, void* scratch,
-                                long long scratch_row, void* out,
+                                long long scratch_ints, void* out,
                                 void* stream) {
   if (B <= 0 || k < 1 || k > 15 || L < k || H < 1 || H > MAX_H)
     return (int)cudaErrorInvalidValue;
   const int n = L - k + 1;
-  if (n > SMEM_KEYS && (scratch == nullptr || scratch_row < n))
+  if (scratch == nullptr || scratch_ints < kmer_vote_scratch_ints(B, L, k, H))
     return (int)cudaErrorInvalidValue;
-  const int cap = n <= SMEM_KEYS ? pow2ceil(n) : SMEM_KEYS;
-  const size_t smem = (size_t)(cap + H + 1) * sizeof(int);
-  kmer_vote_kernel<<<B, VOTE_THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(codes), static_cast<const int*>(lens), L, k,
-      static_cast<const int*>(tables), static_cast<const uint8_t*>(unique), H,
-      1LL << (2 * k), cap, static_cast<int*>(scratch), scratch_row,
-      static_cast<int*>(out));
+  const int tiles = (n + TILE - 1) / TILE;
+  const long long blocks = (long long)tiles * B;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* sc = static_cast<int*>(scratch);
+  const cudaError_t rc =
+      cudaMemsetAsync(sc, 0, (size_t)B * (H + 2) * sizeof(int), s);
+  if (rc != cudaSuccess) return (int)rc;
+  kmer_vote_tile_kernel<<<(int)blocks, TILE_THREADS, 0, s>>>(
+      static_cast<const int8_t*>(codes), static_cast<const int*>(lens), B, L,
+      k, static_cast<const int*>(tables), static_cast<const uint8_t*>(unique),
+      H, 1LL << (2 * k), tiles, sc, tile_row(n), static_cast<int*>(out));
   return (int)cudaGetLastError();
 }

@@ -16,22 +16,46 @@
 // float64 on the host).  A contracted multiply-add would round once where
 // the plain version rounds twice and could flip an allele call.
 //
-// What bounds it on the card: a pair is R rows of W cells, about 16 fp32
+// What bounds it on the card: a pair is R rows of W cells, about 15 fp32
 // operations a cell, and reads R + W + 4 bytes: operations bound it (fp32
 // outside the tensor cores).  Rows past the segment's end cannot change the
-// score, so a pair runs seg_len rows, not R.
+// score, so a pair runs seg_len rows, not R.  The rows of a pair depend on
+// each other, and B = 8192 pairs of 41 columns fill the card in one wave,
+// so the time is the instructions issued a cell.
 //
-// Design: one warp per pair, lane l holding columns l*C .. l*C + C - 1 (C a
-// power of two, 32*C >= W, so W <= 1024), the M, I and D rows in registers.
-// The M row's diagonal shift is a register move inside a lane and one
-// __shfl_up_sync across lanes.  The delete chain
+// The group design (pairhmm_viterbi_group_kernel<G, C>, the path's, W <=
+// 1024): G lanes a pair, 32 / G pairs a warp, lane l of a group holding
+// columns l*C .. l*C + C - 1 (G*C >= W; realign.py::viterbi_group_shape
+// picks G and C, 8 and 6 at W = 41, so 48 columns for 41), the M, I and D
+// rows in registers.  Against the first design (a warp a pair, C a power
+// of two; replaced, its times in PERF.md) it cuts the instructions of a
+// cell:
+// - few idle lanes: C follows W instead of a power of two;
+// - the shuffles of a row (the read base, the diagonal, the delete chain's
+//   max-scan in log2(G) steps, the scan's exclusive value) run inside the
+//   group and serve 32 / G pairs at once; the exclusive value is also the
+//   running max of the columns below the lane, so no shuffle fetches it
+//   again;
+// - what does not change from row to row is hoisted into registers once a
+//   pair: col_ext[j] = j * a_ext (and so gap_ext[j] = col_ext[j - 1]), and
+//   the emission folded into a key (the hap code, or one no base equals
+//   where it is N) and the mismatch value (log_mis, or log_quarter where the
+//   hap is N): a cell compares once and selects once; a row whose read base
+//   is N in some group of the warp takes the select on b >= 4 as well;
+// - prev = max(m + a_mm, max(i, d) + a_back): rounding to nearest is
+//   monotone, so max(i + a_back, d + a_back) rounds to the same float.
+// Max is exact, so the scan's grouping changes no bit.  A warp runs as many
+// rows as its longest segment; a group whose segment has ended stays in the
+// loop, its M and I updates off, so that its row max is taken after the
+// loop on its own last row (its D goes on changing and is never read).  A
+// warp whose pairs are all empty (len 0, the bucket's padding) leaves at
+// once.  Read bases reach a group 4 * G rows at a time, four to a lane.
+//
+// The delete chain
 //   d_new[j] = max_{j' < j} (m_new[j'] - j'*a_ext) + a_gap + (j-1)*a_ext
-// is a running max of m_new - col_ext: a scan inside the lane, then a warp
-// max-scan of the lanes' totals with __shfl_up_sync.  Max is exact, so the
-// scan's order changes no bit.  The read bases reach the lanes 32 rows at a
-// time (one coalesced load, then a __shfl_sync a row); the row max of the
-// last row is a warp max-reduction.  Columns >= W are padding: they only
-// feed higher columns and are left out of the row max.
+// is a running max of m_new - col_ext: a scan inside the lane, then a
+// max-scan of the lanes' totals with __shfl_up_sync.  Columns >= W are
+// padding: they only feed higher columns and are left out of the row max.
 //
 // Windows wider than a warp's 1024 columns (W = 2 * realign_flank + 1 for
 // any flank) take pairhmm_viterbi_block_kernel: a block of BLOCK_THREADS
@@ -54,12 +78,13 @@ namespace {
 
 constexpr float NEG = -1e9f;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int WARPS_PER_BLOCK = 8;
-constexpr int MAX_WARP_W = 1024;
+constexpr int MAX_GROUP_W = 1024;
 constexpr int BLOCK_THREADS = 256;
 constexpr int BLOCK_WARPS = BLOCK_THREADS / 32;
 constexpr int MAX_SMEM_ROWS = 46 * 1024;  // M, I, D rows in shared memory
 constexpr int SCRATCH_BLOCKS = 264;       // blocks when the rows are global
+constexpr int PAIRS_PER_BLOCK = 8;        // group design: G / 4 warps a block
+constexpr int NO_MATCH = 1000;            // a hap key no int8 base equals
 
 struct HmmParams {
   float log_match, log_mis, log_ins, log_quarter, a_mm, a_gap, a_ext, a_back;
@@ -73,82 +98,123 @@ __device__ __forceinline__ float prev_of(float m, float i, float d,
                __fadd_rn(d, p.a_back));
 }
 
-template <int C>
-__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
-pairhmm_viterbi_kernel(const int8_t* __restrict__ segs,
-                       const int* __restrict__ seg_lens,
-                       const int8_t* __restrict__ haps, int B, int R, int W,
-                       HmmParams p, float* __restrict__ out) {
+// prev_of with the two a_back adds folded into one: max(i + a_back, d +
+// a_back) and max(i, d) + a_back round to the same float (rounding to
+// nearest is monotone)
+__device__ __forceinline__ float prev_folded(float m, float i, float d,
+                                             const HmmParams& p) {
+  return fmaxf(__fadd_rn(m, p.a_mm), __fadd_rn(fmaxf(i, d), p.a_back));
+}
+
+// The M and I updates of one row of a lane's C columns, right to left so
+// that column k - 1 still holds the last row.  AMB: some group of the warp
+// reads an N base on this row, so every lane also tests b >= 4.
+template <int C, bool AMB>
+__device__ __forceinline__ void update_mi(float (&m)[C], float (&ii)[C],
+                                          const float (&d)[C],
+                                          const int (&hk)[C],
+                                          const float (&em)[C], float up,
+                                          int b, const HmmParams& p) {
+#pragma unroll
+  for (int k = C - 1; k >= 0; --k) {
+    const float shifted = k == 0 ? up : prev_folded(m[k - 1], ii[k - 1],
+                                                    d[k - 1], p);
+    float e = b == hk[k] ? p.log_match : em[k];
+    if (AMB && b >= 4) e = p.log_quarter;
+    ii[k] = __fadd_rn(p.log_ins, fmaxf(__fadd_rn(m[k], p.a_gap),
+                                       __fadd_rn(ii[k], p.a_ext)));
+    m[k] = __fadd_rn(e, shifted);
+  }
+}
+
+template <int G, int C>
+__global__ void __launch_bounds__(PAIRS_PER_BLOCK * G)
+pairhmm_viterbi_group_kernel(const int8_t* __restrict__ segs,
+                             const int* __restrict__ seg_lens,
+                             const int8_t* __restrict__ haps, int B, int R,
+                             int W, HmmParams p, float* __restrict__ out) {
+  static_assert(G >= 4 && G <= 32 && (G & (G - 1)) == 0, "G: 4 .. 32");
+  constexpr bool HOIST = C <= 16;           // col_ext in registers
   const int lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (pair >= B) return;                    // the whole warp leaves together
-  const int len = seg_lens[pair];
-  // best starts at 0 for an empty segment, else at NEG; it changes only on
-  // the row where t + 1 == len, so a segment longer than R never scores
-  if (len <= 0 || len > R) {
-    if (lane == 0) out[pair] = len == 0 ? 0.f : NEG;
+  const int gl = lane & (G - 1);            // the lane in its group
+  const int pair = blockIdx.x * PAIRS_PER_BLOCK + threadIdx.x / G;
+  const bool real = pair < B;
+  const int len0 = real ? seg_lens[pair] : 0;
+  // rows this pair runs: 0 for an empty segment or one longer than R
+  // (best stays 0 or NEG)
+  const int len = len0 > 0 && len0 <= R ? len0 : 0;
+  const int rows = __reduce_max_sync(FULL, len);
+  if (rows == 0) {                          // the whole warp leaves together
+    if (real && gl == 0) out[pair] = len0 == 0 ? 0.f : NEG;
     return;
   }
-  const int j0 = lane * C;
-  int h[C];
-  float m[C], ii[C], d[C];
-  const int8_t* hp = haps + (size_t)pair * W;
+  const int j0 = gl * C;
+  const int8_t* hp = haps + (size_t)(real ? pair : 0) * W;
+  int hk[C];
+  float em[C], ce[HOIST ? C : 1], m[C], ii[C], d[C];
+  auto col_ext = [&](int k) {
+    if constexpr (HOIST) return ce[k];
+    else return __fmul_rn((float)(j0 + k), p.a_ext);
+  };
 #pragma unroll
   for (int k = 0; k < C; ++k) {
     const int j = j0 + k;
-    h[k] = j < W ? (int)hp[j] : 4;
+    const int h = real && j < W ? (int)hp[j] : 4;
+    hk[k] = h >= 4 ? NO_MATCH : h;          // no read base equals NO_MATCH
+    em[k] = h >= 4 ? p.log_quarter : p.log_mis;
+    if constexpr (HOIST) ce[k] = __fmul_rn((float)j, p.a_ext);
     m[k] = 0.f;                             // free start in every column
     ii[k] = NEG;
     d[k] = NEG;
   }
-  const int8_t* sp = segs + (size_t)pair * R;
-  int chunk = 4;
-  for (int t = 0; t < len; ++t) {
-    if ((t & 31) == 0) chunk = t + lane < R ? (int)sp[t + lane] : 4;
-    const int b = __shfl_sync(FULL, chunk, t & 31);
-    // the diagonal into this lane's first column comes from the lane below
-    float up = __shfl_up_sync(FULL, prev_of(m[C - 1], ii[C - 1], d[C - 1], p),
-                              1);
-    if (lane == 0) up = NEG;
-    // columns right to left, so that column k - 1 still holds the last row
+  const float gap0 = __fmul_rn((float)(j0 - 1), p.a_ext);  // gap_ext[j0]
+  const int8_t* sp = segs + (size_t)(real ? pair : 0) * R;
+  unsigned chunk = 0;
+  for (int t = 0; t < rows; ++t) {
+    // bases t .. t + 4G - 1 of the group's segment, four to a lane
+    if ((t & (4 * G - 1)) == 0) {
+      chunk = 0;
 #pragma unroll
-    for (int k = C - 1; k >= 0; --k) {
-      const float shifted = k == 0 ? up : prev_of(m[k - 1], ii[k - 1],
-                                                  d[k - 1], p);
-      const float e = (b >= 4 || h[k] >= 4) ? p.log_quarter
-                      : (b == h[k] ? p.log_match : p.log_mis);
-      ii[k] = __fadd_rn(p.log_ins, fmaxf(__fadd_rn(m[k], p.a_gap),
-                                         __fadd_rn(ii[k], p.a_ext)));
-      m[k] = __fadd_rn(e, shifted);
+      for (int i = 0; i < 4; ++i) {
+        const int q = t + 4 * gl + i;
+        chunk |= (q < len ? (unsigned)(uint8_t)sp[q] : 4u) << (8 * i);
+      }
     }
-    // g = cummax(m_new - col_ext), col_ext[j] = j * a_ext; kept in d
+    const unsigned word = __shfl_sync(FULL, chunk, (t >> 2) & (G - 1), G);
+    const int b = (int)(int8_t)(word >> (8 * (t & 3)));
+    const bool act = t < len;
+    // the diagonal into this lane's first column comes from the lane below
+    float up = __shfl_up_sync(FULL, prev_folded(m[C - 1], ii[C - 1],
+                                                d[C - 1], p), 1, G);
+    if (gl == 0) up = NEG;
+    if (__any_sync(FULL, act && b >= 4)) {
+      if (act) update_mi<C, true>(m, ii, d, hk, em, up, b, p);
+    } else if (act) {
+      update_mi<C, false>(m, ii, d, hk, em, up, b, p);
+    }
+    // g = cummax(m_new - col_ext): inside the lane (kept in d), then over
+    // the group's lanes (a lane below off the group's start reads itself)
+    float run;
 #pragma unroll
     for (int k = 0; k < C; ++k) {
-      const float x = __fsub_rn(m[k], __fmul_rn((float)(j0 + k), p.a_ext));
+      const float x = __fsub_rn(m[k], col_ext(k));
       d[k] = k == 0 ? x : fmaxf(d[k - 1], x);
     }
-    float run = d[C - 1];
+    run = d[C - 1];
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float v = __shfl_up_sync(FULL, run, off);
-      if (lane >= off) run = fmaxf(run, v);
-    }
-    const float below = __shfl_up_sync(FULL, run, 1);
-    if (lane > 0) {
-#pragma unroll
-      for (int k = 0; k < C; ++k) d[k] = fmaxf(below, d[k]);
-    }
-    // d_new[j] = (g[j-1] + a_gap) + gap_ext[j], gap_ext[j] = (j-1) * a_ext;
-    // NEG in column 0
-    const float g_up = __shfl_up_sync(FULL, d[C - 1], 1);
+    for (int off = 1; off < G; off <<= 1)
+      run = fmaxf(run, __shfl_up_sync(FULL, run, off, G));
+    // g over the columns below j0, = g[j0 - 1]
+    float below = __shfl_up_sync(FULL, run, 1, G);
+    if (gl == 0) below = -INFINITY;
+    // d_new[j] = (g[j-1] + a_gap) + gap_ext[j]; NEG in column 0
 #pragma unroll
     for (int k = C - 1; k >= 0; --k) {
-      const int j = j0 + k;
-      const float g = k == 0 ? g_up : d[k - 1];
-      d[k] = j == 0 ? NEG
-                    : __fadd_rn(__fadd_rn(g, p.a_gap),
-                                __fmul_rn((float)(j - 1), p.a_ext));
+      const float g = k == 0 ? below : fmaxf(below, d[k - 1]);
+      d[k] = __fadd_rn(__fadd_rn(g, p.a_gap),
+                      k == 0 ? gap0 : col_ext(k > 0 ? k - 1 : 0));
     }
+    if (gl == 0) d[0] = NEG;
   }
   // the row where t + 1 == len: best = max(NEG, max_j max(m, i))
   float row = -INFINITY;
@@ -156,9 +222,10 @@ pairhmm_viterbi_kernel(const int8_t* __restrict__ segs,
   for (int k = 0; k < C; ++k)
     if (j0 + k < W) row = fmaxf(row, fmaxf(m[k], ii[k]));
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    row = fmaxf(row, __shfl_xor_sync(FULL, row, off));
-  if (lane == 0) out[pair] = fmaxf(NEG, row);
+  for (int off = G / 2; off > 0; off >>= 1)
+    row = fmaxf(row, __shfl_xor_sync(FULL, row, off, G));
+  if (real && gl == 0)
+    out[pair] = len > 0 ? fmaxf(NEG, row) : (len0 == 0 ? 0.f : NEG);
 }
 
 // GLOBAL: the rows in `scratch` (3 * W floats a block), else in shared
@@ -261,13 +328,37 @@ pairhmm_viterbi_block_kernel(const int8_t* __restrict__ segs,
 
 bool rows_global(int W) { return 12LL * W > MAX_SMEM_ROWS; }
 
-template <int C>
-int launch(const int8_t* segs, const int* lens, const int8_t* haps, int B,
-           int R, int W, const HmmParams& p, float* out, cudaStream_t s) {
-  const int blocks = (B + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  pairhmm_viterbi_kernel<C><<<blocks, 32 * WARPS_PER_BLOCK, 0, s>>>(
+template <int G, int C>
+int launch_group(const int8_t* segs, const int* lens, const int8_t* haps,
+                 int B, int R, int W, const HmmParams& p, float* out,
+                 cudaStream_t s) {
+  if (G * C < W) return (int)cudaErrorInvalidValue;
+  const int blocks = (B + PAIRS_PER_BLOCK - 1) / PAIRS_PER_BLOCK;
+  pairhmm_viterbi_group_kernel<G, C><<<blocks, PAIRS_PER_BLOCK * G, 0, s>>>(
       segs, lens, haps, B, R, W, p, out);
   return (int)cudaGetLastError();
+}
+
+// the group design's instances: G 4 at C 1-8; G 8 and 16 at C 5-8; G 32 at
+// C 5-8, 12, 16, 24, 32 (realign.py::viterbi_group_shape)
+int launch_group_at(int G, int C, const int8_t* segs, const int* lens,
+                    const int8_t* haps, int B, int R, int W,
+                    const HmmParams& p, float* out, cudaStream_t s) {
+#define PAIRHMM_GROUP(GG, CC)                                               \
+  if (G == GG && C == CC)                                                   \
+    return launch_group<GG, CC>(segs, lens, haps, B, R, W, p, out, s);
+  PAIRHMM_GROUP(4, 1) PAIRHMM_GROUP(4, 2) PAIRHMM_GROUP(4, 3)
+  PAIRHMM_GROUP(4, 4) PAIRHMM_GROUP(4, 5) PAIRHMM_GROUP(4, 6)
+  PAIRHMM_GROUP(4, 7) PAIRHMM_GROUP(4, 8)
+  PAIRHMM_GROUP(8, 5) PAIRHMM_GROUP(8, 6) PAIRHMM_GROUP(8, 7)
+  PAIRHMM_GROUP(8, 8)
+  PAIRHMM_GROUP(16, 5) PAIRHMM_GROUP(16, 6) PAIRHMM_GROUP(16, 7)
+  PAIRHMM_GROUP(16, 8)
+  PAIRHMM_GROUP(32, 5) PAIRHMM_GROUP(32, 6) PAIRHMM_GROUP(32, 7)
+  PAIRHMM_GROUP(32, 8) PAIRHMM_GROUP(32, 12) PAIRHMM_GROUP(32, 16)
+  PAIRHMM_GROUP(32, 24) PAIRHMM_GROUP(32, 32)
+#undef PAIRHMM_GROUP
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -279,7 +370,7 @@ extern "C" const char* pairhmm_error_string(int err) {
 // Bytes of device memory pairhmm_viterbi_launch needs as `scratch`: 0
 // unless W > 1024 and the block design's rows exceed its shared memory.
 extern "C" long long pairhmm_scratch_bytes(int B, int W) {
-  if (W <= MAX_WARP_W || !rows_global(W)) return 0;
+  if (W <= MAX_GROUP_W || !rows_global(W)) return 0;
   return 12LL * W * (B < SCRATCH_BLOCKS ? B : SCRATCH_BLOCKS);
 }
 
@@ -287,13 +378,14 @@ extern "C" long long pairhmm_scratch_bytes(int B, int W) {
 // int32, haps (B, W) int8, out (B,) float32, all contiguous on the device;
 // W >= 1, R >= 0; scratch as pairhmm_scratch_bytes asks (or null).  The
 // eight constants are the plain version's fp32 values.  W <= 1024 takes the
-// warp design, wider windows the block design.  Returns the cudaError_t of
-// the launch.
+// group design with G lanes a pair and C columns a lane (G * C >= W, one of
+// launch_group_at's instances); W > 1024 the block design (G and C unused).
+// Returns the cudaError_t of the launch.
 extern "C" int pairhmm_viterbi_launch(
-    const void* segs, const void* seg_lens, const void* haps, int B, int R,
-    int W, float log_match, float log_mis, float log_ins, float log_quarter,
-    float a_mm, float a_gap, float a_ext, float a_back, void* scratch,
-    void* out, void* stream) {
+    int G, int C, const void* segs, const void* seg_lens, const void* haps,
+    int B, int R, int W, float log_match, float log_mis, float log_ins,
+    float log_quarter, float a_mm, float a_gap, float a_ext, float a_back,
+    void* scratch, void* out, void* stream) {
   if (B <= 0 || R < 0 || W < 1) return (int)cudaErrorInvalidValue;
   const HmmParams p{log_match, log_mis, log_ins, log_quarter,
                     a_mm,      a_gap,   a_ext,   a_back};
@@ -302,25 +394,18 @@ extern "C" int pairhmm_viterbi_launch(
   const int8_t* hp = static_cast<const int8_t*>(haps);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (W > MAX_WARP_W) {
-    if (rows_global(W)) {
-      if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-      const int blocks = B < SCRATCH_BLOCKS ? B : SCRATCH_BLOCKS;
-      pairhmm_viterbi_block_kernel<true><<<blocks, BLOCK_THREADS, 0, s>>>(
-          sg, ln, hp, B, R, W, p, static_cast<float*>(scratch), o);
-    } else {
-      const int blocks = B < 65535 ? B : 65535;
-      pairhmm_viterbi_block_kernel<false>
-          <<<blocks, BLOCK_THREADS, 12 * W, s>>>(sg, ln, hp, B, R, W, p,
-                                                 nullptr, o);
-    }
-    return (int)cudaGetLastError();
+  if (W <= MAX_GROUP_W)
+    return launch_group_at(G, C, sg, ln, hp, B, R, W, p, o, s);
+  if (rows_global(W)) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const int blocks = B < SCRATCH_BLOCKS ? B : SCRATCH_BLOCKS;
+    pairhmm_viterbi_block_kernel<true><<<blocks, BLOCK_THREADS, 0, s>>>(
+        sg, ln, hp, B, R, W, p, static_cast<float*>(scratch), o);
+  } else {
+    const int blocks = B < 65535 ? B : 65535;
+    pairhmm_viterbi_block_kernel<false>
+        <<<blocks, BLOCK_THREADS, 12 * W, s>>>(sg, ln, hp, B, R, W, p,
+                                               nullptr, o);
   }
-  const int per_lane = (W + 31) / 32;
-  if (per_lane <= 1) return launch<1>(sg, ln, hp, B, R, W, p, o, s);
-  if (per_lane <= 2) return launch<2>(sg, ln, hp, B, R, W, p, o, s);
-  if (per_lane <= 4) return launch<4>(sg, ln, hp, B, R, W, p, o, s);
-  if (per_lane <= 8) return launch<8>(sg, ln, hp, B, R, W, p, o, s);
-  if (per_lane <= 16) return launch<16>(sg, ln, hp, B, R, W, p, o, s);
-  return launch<32>(sg, ln, hp, B, R, W, p, o, s);
+  return (int)cudaGetLastError();
 }

@@ -65,7 +65,7 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
         lib.pairhmm_scratch_bytes.argtypes = [ci, ci]
         lib.pairhmm_scratch_bytes.restype = ctypes.c_longlong
         lib.pairhmm_viterbi_launch.argtypes = \
-            [vp] * 3 + [ci] * 3 + [cf] * 8 + [vp] * 3
+            [ci] * 2 + [vp] * 3 + [ci] * 3 + [cf] * 8 + [vp] * 3
         lib.pairhmm_viterbi_launch.restype = ci
     elif name == "coverage_hmm":
         lib.coverage_viterbi_scratch_bytes.argtypes = [ci] * 3
@@ -81,8 +81,8 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
         lib.kmer_count_launch.restype = ci
         lib.unique_mask_launch.argtypes = [vp, ci, cl, vp, vp]
         lib.unique_mask_launch.restype = ci
-        lib.kmer_vote_scratch_row.argtypes = [ci, ci]
-        lib.kmer_vote_scratch_row.restype = cl
+        lib.kmer_vote_scratch_ints.argtypes = [ci] * 4
+        lib.kmer_vote_scratch_ints.restype = cl
         lib.kmer_vote_launch.argtypes = \
             [vp, vp] + [ci] * 3 + [vp, vp, ci, vp, cl, vp, vp]
         lib.kmer_vote_launch.restype = ci

@@ -295,7 +295,7 @@ def kmer_vote(codes: torch.Tensor, lens: torch.Tensor, k: int,
     read b + tables[j, x]).  codes (B, L) int8, lens (B,) int32 (windows w
     < lens[b] - k + 1, as `_read_hashes` clips them), tables (H, 4^k)
     int32, unique (H, 4^k) bool.  The CUDA kernel
-    (`csrc/kmer.cu::kmer_vote_kernel`, on the current stream) for CUDA
+    (`csrc/kmer.cu::kmer_vote_tile_kernel`, on the current stream) for CUDA
     tensors, `_kmer_vote_plain` for CPU tensors.  Each launch appends
     (B, L, k, H) to `kmer_vote.shapes`."""
     dev = _check("kmer_vote", [("codes", codes, torch.int8, 2),
@@ -316,15 +316,13 @@ def kmer_vote(codes: torch.Tensor, lens: torch.Tensor, k: int,
         return _kmer_vote_plain(codes, lens, k, tables, unique)
     from . import cuda_build
     lib = cuda_build.lib("kmer")
-    row = lib.kmer_vote_scratch_row(L, k)
-    scratch = torch.empty(B * row, dtype=torch.int32, device=codes.device) \
-        if row else None
+    n = lib.kmer_vote_scratch_ints(B, L, k, H)
+    scratch = torch.empty(n, dtype=torch.int32, device=codes.device)
     with torch.cuda.device(codes.device):
         rc = lib.kmer_vote_launch(
             codes.data_ptr(), lens.data_ptr(), B, L, k, tables.data_ptr(),
-            unique.data_ptr(), H,
-            scratch.data_ptr() if scratch is not None else None, row,
-            out.data_ptr(), _stream(codes))
+            unique.data_ptr(), H, scratch.data_ptr(), n, out.data_ptr(),
+            _stream(codes))
     cuda_build.check(rc, "kmer_vote launch", "kmer")
     kmer_vote.launches += 1
     kmer_vote.shapes.append((B, L, k, H))

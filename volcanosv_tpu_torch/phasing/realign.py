@@ -17,8 +17,9 @@ device: on the CPU `_viterbi_batch_plain`, a loop over read rows with the
 delete-chain linear recurrence solved by a running prefix-max (`cummax`)
 instead of a sequential column loop, so every row is a few elementwise ops
 over the whole batch; on the card the hand-written kernel
-`csrc/pairhmm.cu` (a warp per pair up to W = 1024, a block per pair
-above), or it raises.
+`csrc/pairhmm.cu` (up to W = 1024 a group of G lanes per pair, 32 / G
+pairs a warp, `viterbi_group_shape`; a block per pair above), or it
+raises.
 
 Rounding: every product and sum is its own operation, in the order of the
 reference's jnp code, on fp32 operands (the constants are fp32 scalars,
@@ -91,6 +92,27 @@ def _viterbi_batch_plain(segs: torch.Tensor, seg_lens: torch.Tensor,
     return best
 
 
+# the group design's column counts at G = 32 (csrc/pairhmm.cu instances)
+_GROUP32_COLUMNS = (5, 6, 7, 8, 12, 16, 24, 32)
+
+
+def viterbi_group_shape(W: int) -> tuple[int, int]:
+    """(G, C) of the group design at window width W (1..1024): G lanes a
+    pair, the least of 4, 8, 16 and 32 with 8 * G >= W (W = 41 → 8), and C
+    = ceil(W / G) columns a lane, at G = 32 rounded up to one of
+    _GROUP32_COLUMNS.  G * C >= W, with at most 3/8 of the columns idle
+    from W = 5 on (7 of 48 at W = 41)."""
+    if not 1 <= W <= 1024:
+        raise ValueError(f"viterbi_group_shape: W={W} outside 1..1024")
+    G = 4
+    while 8 * G < W and G < 32:
+        G *= 2
+    C = -(-W // G)
+    if G == 32:
+        C = next(c for c in _GROUP32_COLUMNS if c >= C)
+    return G, C
+
+
 def _viterbi_batch(segs: torch.Tensor, seg_lens: torch.Tensor,
                    haps: torch.Tensor, *, W: int, log_match, log_mis,
                    log_ins, a_mm, a_gap, a_ext, a_back) -> torch.Tensor:
@@ -98,8 +120,9 @@ def _viterbi_batch(segs: torch.Tensor, seg_lens: torch.Tensor,
     windows → (B,) fp32 Viterbi scores on the inputs' device: the CUDA
     kernel for CUDA tensors (launched on the current stream, no
     synchronisation), `_viterbi_batch_plain` for CPU tensors; the two are
-    bit-equal.  On CUDA the inputs must be contiguous, W >= 1, any R.
-    Each launch appends (B, R, W) to `_viterbi_batch.shapes`."""
+    bit-equal.  On CUDA the inputs must be contiguous, W >= 1, any R: the
+    group design up to W = 1024 (`viterbi_group_shape`), the block design
+    above.  Each launch appends (B, R, W) to `_viterbi_batch.shapes`."""
     consts = dict(log_match=log_match, log_mis=log_mis, log_ins=log_ins,
                   a_mm=a_mm, a_gap=a_gap, a_ext=a_ext, a_back=a_back)
     if segs.device.type == "cpu":
@@ -120,6 +143,7 @@ def _viterbi_batch(segs: torch.Tensor, seg_lens: torch.Tensor,
                              f"{dt} tensor on {segs.device}")
     if W < 1:
         raise ValueError(f"_viterbi_batch: W={W} < 1")
+    G, C = viterbi_group_shape(W) if W <= 1024 else (0, 0)
     B, R = segs.shape
     out = torch.empty(B, dtype=torch.float32, device=segs.device)
     if B == 0:
@@ -134,8 +158,9 @@ def _viterbi_batch(segs: torch.Tensor, seg_lens: torch.Tensor,
         a_back)]
     with torch.cuda.device(segs.device):     # the launch goes to segs' card
         rc = lib.pairhmm_viterbi_launch(
-            segs.data_ptr(), seg_lens.data_ptr(), haps.data_ptr(), B, R, W,
-            *f32, scratch.data_ptr() if scratch is not None else None,
+            G, C, segs.data_ptr(), seg_lens.data_ptr(), haps.data_ptr(), B,
+            R, W, *f32,
+            scratch.data_ptr() if scratch is not None else None,
             out.data_ptr(),
             torch.cuda.current_stream(segs.device).cuda_stream)
     cuda_build.check(rc, "pairhmm_viterbi launch", "pairhmm")
@@ -164,6 +189,23 @@ class PairHmmParams:
 _BUCKET = 4096
 
 
+def _bucket(read_segs: np.ndarray, seg_lens: np.ndarray, hap_ref: np.ndarray,
+            hap_alt: np.ndarray, lo: int):
+    """The pairs of `pairhmm_alleles`' bucket at `lo`, as one kernel launch
+    takes them: (2 * _BUCKET, R) segments, (2 * _BUCKET,) int32 lengths and
+    (2 * _BUCKET, W) windows, the REF half then the ALT half, each padded to
+    _BUCKET with empty pairs (codes 4, length 0)."""
+    hi = min(lo + _BUCKET, len(seg_lens))
+    pad = _BUCKET - (hi - lo)
+    segs = np.pad(read_segs[lo:hi], ((0, pad), (0, 0)), constant_values=4)
+    lens = np.pad(seg_lens[lo:hi], (0, pad))
+    haps = np.concatenate([np.pad(h[lo:hi], ((0, pad), (0, 0)),
+                                  constant_values=4)
+                           for h in (hap_ref, hap_alt)])
+    return (np.concatenate([segs, segs]),
+            np.concatenate([lens, lens]).astype(np.int32), haps)
+
+
 def pairhmm_alleles(read_segs: np.ndarray, seg_lens: np.ndarray,
                     hap_ref: np.ndarray, hap_alt: np.ndarray,
                     error_rate: float, margin: float = 1.0,
@@ -180,15 +222,8 @@ def pairhmm_alleles(read_segs: np.ndarray, seg_lens: np.ndarray,
     out = np.zeros(N, np.int8)
     for lo in range(0, N, _BUCKET):
         hi = min(lo + _BUCKET, N)
-        pad = _BUCKET - (hi - lo)
-        segs = np.pad(read_segs[lo:hi], ((0, pad), (0, 0)), constant_values=4)
-        lens = np.pad(seg_lens[lo:hi], (0, pad))
-        both_h = np.concatenate([np.pad(hap_ref[lo:hi], ((0, pad), (0, 0)),
-                                        constant_values=4),
-                                 np.pad(hap_alt[lo:hi], ((0, pad), (0, 0)),
-                                        constant_values=4)])
-        both_s = np.concatenate([segs, segs])
-        both_l = np.concatenate([lens, lens]).astype(np.int32)
+        both_s, both_l, both_h = _bucket(read_segs, seg_lens, hap_ref,
+                                         hap_alt, lo)
         v = _viterbi_batch(
             torch.from_numpy(both_s).to(device),
             torch.from_numpy(both_l).to(device),
