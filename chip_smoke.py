@@ -83,11 +83,17 @@ Phase 4b `asm` with `--device cuda` and with `--device cpu` on the
          Then the MEC kernel (csrc/mec.cu) against its plain version,
          (h, a, mec) equal: at phase 4's largest observation set (8
          restarts x 30 iterations; on the card and on the CPU; timed beside
-         its bound), at edge cases in both designs (n_iter 0, 1 and 30,
-         reads and SNPs without observations, every allele 0, one and no
-         observation, duplicates, restarts tied on the lowest MEC, a
-         shuffled order with an SV-marker column appended), at R + S just
-         inside and just past one block's shared memory, and at a
+         its bound and its chain floor, `chain_ms`: the 61 half-steps times
+         the half-step barrier of the design's cluster size, measured by
+         `mec_sync_chase`; every cluster size of the smem design, 1 to 16
+         CTAs a restart, and the grid design timed in turns), one CTA a
+         restart against 8 in turns on six sets of about 4,900 to 19,100
+         observations (across the plan's one-CTA limit), at edge cases
+         at 1, 2 and 16 CTAs a restart and in the grid design (n_iter 0, 1
+         and 30, reads and SNPs without observations, every allele 0, one
+         and no observation, duplicates, restarts tied on the lowest MEC, a
+         shuffled order with an SV-marker column appended), at R just
+         inside and just past the smem design's reach, and at a
          chromosome's scale (250 Mb, het SNPs 1 every 1.5 kb, 9 kb reads at
          30x: 166,667 SNPs, 833,333 reads, about 5M observations; the grid
          design, on the card only; timed beside its bound).  At phase 4's
@@ -101,13 +107,17 @@ Phase 4b `asm` with `--device cuda` and with `--device cpu` on the
          phase 4's own inputs (the largest table-build chunk, the unique
          mask of four tables, the largest vote chunk of 64 reads), each
          timed beside its bound (the count also beside one `index_add_` of
-         its prepared index and weights; the vote, a grid of read tiles,
+         its prepared index and weights, and three instances of its kernel
+         template in turns: as it is, with its hashes masked into 1 MB so
+         that every atomic hits the L2, and the hashing alone; the vote, a
+         grid of read tiles,
          timed with a warm L2 and with the L2 flushed before each launch),
          then at edge cases for k 6 and 12: a stream counted in chunks
          across seams, rows with lengths, and vote chunks with empty,
          all-N, homopolymer and N-run rows, the partition's two-zero-table
          layout and a 120 kb read in a 2^17-column chunk, whose unique
-         windows overflow the vote's shared memory.
+         windows overflow the vote's shared memory; the count on poly-A,
+         poly-T and all-N chunks into a table that holds counts.
 Phase 5  `run --device cuda` (reads -> asm -> the large-indel, small-indel
          and complex-SV callers -> merged VCF) on the golden recipe of
          tests/test_golden_e2e.py (4 x 250 kb, every SV type, a
@@ -132,7 +142,9 @@ Phase 5  `run --device cuda` (reads -> asm -> the large-indel, small-indel
          pairs (0 < len <= R) of 8192 and how the group design's warps mix
          lengths, for each vote launch its real reads of 64.  The run is
          traced on the card (torch.profiler) for the device's busy time
-         and the pair-HMM's and the vote's device time a launch; with
+         and the pair-HMM's, the k-mer kernels' and the MEC kernels'
+         device time a launch; the MEC launches' (O, NR, S, R) and, after
+         the run, the MEC designs in turns at its largest set; with
          --profile the host's ops too.  After the run the pair-HMM kernel
          is held to the plain version and timed at the run's fullest
          bucket.
@@ -656,8 +668,8 @@ def _profile_summary(prof, wall_s: float) -> dict:
     """Device time by kernel name (ms) from a torch.profiler trace, the
     summed device time and its share of the wall time, the time of
     PyTorch's indexing kernels (names holding "index": `index_add_`, the
-    gathers) with their names, and the pair-HMM's and the k-mer kernels'
-    time, launches and time a launch (`focus`)."""
+    gathers) with their names, and the pair-HMM's, the k-mer kernels' and
+    the MEC kernels' time, launches and time a launch (`focus`)."""
     by_name = {}
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -673,7 +685,8 @@ def _profile_summary(prof, wall_s: float) -> dict:
              if "index" in k.lower()}
     focus = {k[:120]: dict(ms=v[0], count=v[1], ms_per_launch=v[0] / v[1])
              for k, v in by_name.items()
-             if "pairhmm" in k or "kmer_" in k or "unique_mask" in k}
+             if "pairhmm" in k or "kmer_" in k or "unique_mask" in k
+             or "mec_" in k}
     return dict(busy_ms=busy, wall_s=wall_s,
                 busy_share=busy / (wall_s * 1e3),
                 index_ms=sum(index.values()), index_kernels=index,
@@ -840,12 +853,12 @@ WATCHED = (("phasing.phase", "_mec_solve",
 VITERBI_OPS_PER_CELL = 15
 
 
-def _watch(calls: dict, kept: dict):
-    """Wrap each WATCHED function where the path calls it: count its calls
-    and keep the inputs of one call.  Returns the undo."""
+def _watch(calls: dict, kept: dict, watched=WATCHED):
+    """Wrap each `watched` function where the path calls it: count its
+    calls and keep the inputs of one call.  Returns the undo."""
     import importlib
     undo = []
-    for mod_name, attr, key in WATCHED:
+    for mod_name, attr, key in watched:
         mod = importlib.import_module(f"volcanosv_tpu_torch.{mod_name}")
         fn = getattr(mod, attr)
 
@@ -1321,6 +1334,36 @@ def _kmer_check(name: str, fn, args_card, fresh=None) -> dict:
                 out=list(got.shape))
 
 
+def _kmer_count_probes(table, codes, k: int, lens) -> dict:
+    """What sets the atomic count's time, at these inputs (device ms a
+    launch, queued, in turns): (a) the kernel as it is, (b) each hash masked
+    into the table's first 1 MB (every atomic an L2 hit), (c) the hashing
+    alone (the atomic predicated on an impossible hash); the share of (c)
+    in (a) and the gap (a) - (b).  Launches of the one kernel with a flag
+    (csrc/kmer.cu::kmer_count_probe_launch), on no path; `table` is
+    scratch."""
+    import torch
+
+    from volcanosv_tpu_torch.ops import cuda_build
+    lib = cuda_build.lib("kmer")
+    B, L = codes.shape
+    st = torch.cuda.current_stream().cuda_stream
+
+    def probe(p):
+        def run():
+            cuda_build.check(lib.kmer_count_probe_launch(
+                codes.data_ptr(), lens.data_ptr() if lens is not None
+                else None, B, L, k, table.data_ptr(), p, st),
+                "kmer_count probe", "kmer")
+        return run
+    ms = _time_turns({"a_count": probe(0), "b_l2_slice": probe(1),
+                      "c_hash_only": probe(2)})
+    ms.update(hash_share=ms["c_hash_only"] / ms["a_count"],
+              gap_a_minus_b=ms["a_count"] - ms["b_l2_slice"])
+    _log(f"phase 4b: kmer_count probes (ms) {json.dumps(ms)}")
+    return ms
+
+
 def _kmer_rows(kept: dict) -> list[dict]:
     """The three k-mer kernels at phase 4's kept inputs: exactly equal to
     their plain versions (card and CPU), the kernel's device time a launch
@@ -1345,6 +1388,7 @@ def _kmer_rows(kept: dict) -> list[dict]:
         plain_ms=_time_calls_ms(
             lambda: kmer._kmer_count_plain(t, codes, k, lens)),
         library_ms=_time_queued_ms(lambda: t.index_add_(0, idx, w)),
+        probes=_kmer_count_probes(t, codes, k, lens),
         **_kmer_count_bound(codes, k, lens))
     rows.append(row)
     (tables,), _ = kept["unique_mask"]
@@ -1380,27 +1424,42 @@ def _kmer_rows(kept: dict) -> list[dict]:
 def _kmer_edges() -> list[dict]:
     """The k-mer kernels against their plain versions (card and CPU,
     exactly equal) at k 6 and 12: a stream counted chunk by chunk across
-    the seams into one table (= the stream's count in one chunk), the vote
+    the seams into one table (= the stream's count in one chunk), poly-A,
+    poly-T and all-N chunks counted into a table that holds counts, the vote
     case's rows counted with their lengths, the unique mask and the vote
     of the vote case, of its two-zero-table layout and of its 2^17-column
     chunk with a 120 kb read (the vote's list in scratch)."""
+    import numpy as np
     import torch
 
     from volcanosv_tpu_torch.ops import kmer
     rows = []
     for k in (6, 12):
         stream, chunks = _kmer_count_case(k, k)
-        table = torch.zeros(4**k, dtype=torch.int32, device="cuda")
-        for c in chunks:
-            kmer.kmer_count_into(table, torch.from_numpy(c).cuda()[None], k)
         whole = kmer._kmer_count_plain(
             torch.zeros(4**k, dtype=torch.int32),
             torch.from_numpy(stream)[None], k)
+        # poly-A (hash 0: every atomic on one word), poly-T (hash 4^k -
+        # 1), an all-N row, into a table that holds counts
+        poly = np.zeros((3, 1 << 17), np.int8)
+        poly[1], poly[2] = 3, 4
+        poly = torch.from_numpy(poly).cuda()
+        base = torch.arange(4**k, dtype=torch.int32, device="cuda") % 5
+        table = torch.zeros(4**k, dtype=torch.int32, device="cuda")
+        for c in chunks:
+            kmer.kmer_count_into(table, torch.from_numpy(c).cuda()[None], k)
         if not torch.equal(table.cpu(), whole):
             raise AssertionError(f"phase 4b: kmer_count across chunk seams "
                                  f"!= the whole stream's count at k={k}")
-        rows.append(dict(name="kmer_count", case="chunk seams", k=k,
-                         chunks=len(chunks), equal=True))
+        got = kmer.kmer_count_into(base.clone(), poly, k)
+        if not torch.equal(got.cpu(), kmer._kmer_count_plain(
+                base.cpu(), poly.cpu(), k)):
+            raise AssertionError("phase 4b: kmer_count != plain on poly-A / "
+                                 "poly-T / all-N")
+        rows.append(dict(name="kmer_count",
+                         case="chunk seams; poly-A, poly-T, all-N into "
+                              "counts", k=k, chunks=len(chunks), equal=True,
+                         max_abs_err=0))
         for case, kw in (("edge rows", {}),
                          ("two zero tables", dict(zero_tables=True)),
                          ("2^17 columns", dict(long_row=True))):
@@ -1500,8 +1559,16 @@ def _asm_cuda_vs_cpu(d: str, dtype: str, err: float) -> dict:
     return info
 
 
-# the MEC kernel's designs by mec_phase_branch's number
-MEC_DESIGNS = {1: "block", 2: "grid"}
+def _time_turns(fns: dict, runs: int = 10) -> dict:
+    """Device ms a call of each of `fns` (name -> fn), queued
+    (`_time_queued_ms`), in turns: in order, then in reverse order (old,
+    new, new, old for two); each name's mean of its two times."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for order in (names, names[::-1]):
+        for n in order:
+            times[n].append(_time_queued_ms(fns[n], runs))
+    return {n: sum(v) / len(v) for n, v in times.items()}
 
 
 def _mec_case(rng, n_reads, S, per_read, flip=0.15, zero=0.05):
@@ -1609,8 +1676,12 @@ def _mec_bound(args, n_reads: int, n_iter: int) -> dict:
     return dict(_bound(n_bytes, ops), informative=n_inf)
 
 
+def _mec_design_name(branch: str, ctas) -> str:
+    return f"smem/{ctas}" if branch == "smem" else branch
+
+
 def _mec_row(name: str, args, n_reads: int, n_iter: int,
-             branch: str = "auto", cpu: bool = False,
+             branch: str = "auto", ctas=None, cpu: bool = False,
              timed: bool = False) -> dict:
     """The MEC kernels (one launch of `_mec_phase` on the card's tensors:
     the CSR sort and the votes) against `_mec_phase_plain` on the same
@@ -1620,23 +1691,25 @@ def _mec_row(name: str, args, n_reads: int, n_iter: int,
     bound."""
     import torch
 
-    from volcanosv_tpu_torch.ops import cuda_build
     from volcanosv_tpu_torch.phasing import phase
     kw = dict(n_reads=n_reads, n_iter=n_iter)
     n0 = phase._mec_phase.launches
-    got = phase._mec_phase(*args, **kw, branch=branch)
+    got = phase._mec_phase(*args, **kw, branch=branch, ctas=ctas)
     torch.cuda.synchronize()
     if phase._mec_phase.launches != n0 + 1:
         raise AssertionError(f"phase 4b: MEC {name} launched no kernel")
     if not _equal_tensors(got, [w.cpu() for w in
                                 phase._mec_phase_plain(*args, **kw)]):
-        raise AssertionError(f"phase 4b: MEC kernel != plain at {name}")
+        raise AssertionError(f"phase 4b: MEC kernel != plain at {name} "
+                             f"({branch}, {ctas})")
     n_restarts, S = args[3].shape
-    design = branch if branch != "auto" else MEC_DESIGNS[
-        cuda_build.lib("mec").mec_phase_branch(S, n_reads)]
-    row = dict(name=name, design=design, obs=int(args[0].numel()),
-               restarts=n_restarts, snps=S, reads=n_reads, n_iter=n_iter,
-               mec=int(got[2]), equal=True, max_abs_err=0)
+    if branch == "auto":
+        branch, ctas = phase.mec_design(S, n_reads, args[0].numel())
+        ctas = ctas or None
+    row = dict(name=name, design=_mec_design_name(branch, ctas),
+               obs=int(args[0].numel()), restarts=n_restarts, snps=S,
+               reads=n_reads, n_iter=n_iter, mec=int(got[2]), equal=True,
+               max_abs_err=0)
     if cpu:
         args_cpu = [a.cpu() for a in args]
         t0 = time.perf_counter()
@@ -1647,13 +1720,60 @@ def _mec_row(name: str, args, n_reads: int, n_iter: int,
     if timed:
         row.update(
             ms=_time_queued_ms(lambda: phase._mec_phase(
-                *args, **kw, branch=branch)),
+                *args, **kw, branch=branch, ctas=ctas)),
             plain_ms=_time_calls_ms(
                 lambda: phase._mec_phase_plain(*args, **kw)),
             **_mec_bound(args, n_reads, n_iter))
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
     _log(f"phase 4b: MEC {json.dumps(row)}")
     return row
+
+
+# the smem design's cluster sizes timed in turns (phase.mec_plan takes 1
+# and 8)
+MEC_CTAS_TIMED = (1, 2, 4, 8, 16)
+
+
+def _mec_barriers() -> dict:
+    """The smem design's half-step barrier (__syncthreads, and a cluster
+    barrier past one CTA) on one cluster of each size, 20,000 rounds:
+    nanoseconds and SM cycles a round (csrc/mec.cu::mec_sync_chase)."""
+    import torch
+
+    from volcanosv_tpu_torch.ops import cuda_build
+    lib = cuda_build.lib("mec")
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    rounds, lat = 20_000, {}
+    for ctas in MEC_CTAS_TIMED:
+        for _ in range(2):            # the second: warm
+            cuda_build.check(lib.mec_sync_chase(
+                ctas, rounds, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), "chase", "mec")
+            torch.cuda.synchronize()
+        ns, cycles = out.tolist()
+        lat[ctas] = dict(ns=ns / rounds, cycles=cycles / rounds)
+    return lat
+
+
+def _mec_designs_in_turns(args, n_reads: int, n_iter: int, S: int) -> dict:
+    """Every design that takes these inputs, each checked once against the
+    plain version, then timed in turns (`_time_turns`): the smem design at
+    each cluster size whose h, a and offsets fit, and the grid design."""
+    from volcanosv_tpu_torch.phasing import phase
+    from volcanosv_tpu_torch.ops import cuda_build
+    smem = phase.mec_smem_bytes(cuda_build.lib("mec"))
+    kw = dict(n_reads=n_reads, n_iter=n_iter)
+    designs = [("smem", c) for c in MEC_CTAS_TIMED
+                if phase.mec_smem_need(S, n_reads, args[0].numel(), c)[0]
+                <= smem]
+    designs.append(("grid", None))
+    fns = {}
+    for branch, ctas in designs:
+        _mec_row("designs in turns", args, n_reads, n_iter, branch, ctas)
+        fns[_mec_design_name(branch, ctas)] = (
+            lambda b=branch, c=ctas: phase._mec_phase(
+                *args, **kw, branch=b, ctas=c))
+    return _time_turns(fns)
 
 
 def _mec_solve_times(solve_args, reps: int) -> dict:
@@ -1688,17 +1808,60 @@ def _mec_solve_times(solve_args, reps: int) -> dict:
     return {f"{k}_ms": float(np.median(v)) for k, v in times.items()}
 
 
+def _mec_one_cta_limit(seed: int) -> dict:
+    """One CTA a restart against 8 (`mec_plan`'s two cluster sizes), each
+    checked once against the plain version and then timed in turns, on
+    `_mec_case` sets of 4 to 5 observations a read and about 32 a SNP (the
+    golden run's shape) from about 5,000 observations to 20,000, across
+    phase.MEC_ONE_CTA_MAX_OBS: device ms by O."""
+    import numpy as np
+    import torch
+
+    from volcanosv_tpu_torch.phasing import phase
+    out = {}
+    for n_reads in (1200, 1800, 2400, 3000, 3600, 4800):
+        S = n_reads // 8
+        r, s, o = _mec_case(np.random.default_rng(seed + n_reads), n_reads,
+                            S, 4)
+        h0 = phase.restart_inits(phase.chain_init(r, s, o, S), seed, 8)
+        args = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                for x in (r, s, o, h0)]
+        fns = {}
+        for ctas in (1, 8):
+            _mec_row("one CTA against 8", args, n_reads, 30, "smem", ctas)
+            fns[f"smem/{ctas}"] = (lambda c=ctas: phase._mec_phase(
+                *args, n_reads=n_reads, n_iter=30, branch="smem", ctas=c))
+        out[len(r)] = dict(_time_turns(fns), snps=S, reads=n_reads,
+                           plan=_mec_design_name(
+                               *phase.mec_design(S, n_reads, len(r))))
+    _log(f"phase 4b: MEC one CTA against 8 by O (ms) {json.dumps(out)}")
+    return out
+
+
+def _mec_threshold(S: int, O: int) -> int:
+    """The most reads R for which `mec_design` still takes the smem design
+    at S SNPs and O observations."""
+    from volcanosv_tpu_torch.phasing import phase
+    lo, hi = 1, 1 << 22
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if phase.mec_design(S, mid, O)[0] == "smem":
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
 def _mec_rows(seed: int, kept: dict) -> dict:
     """The MEC kernel against its plain version: at phase 4's largest
-    observation set (card and CPU, timed), at every edge case in both
-    designs (card and CPU), at R + S just inside and just past one block's
-    shared memory (auto and grid), and at a chromosome's scale (the grid
-    design, card only, timed)."""
+    observation set (card and CPU, timed; every design timed in turns; the
+    chain floor), at every edge case in each design (card and CPU), at R
+    just inside and just past the smem design's reach (auto and grid), and
+    at a chromosome's scale (the grid design, card only, timed)."""
     import numpy as np
     import torch
 
     from volcanosv_tpu_torch.config import PhasingConfig
-    from volcanosv_tpu_torch.ops import cuda_build
     from volcanosv_tpu_torch.phasing import phase
 
     def on_card(*xs):
@@ -1709,30 +1872,44 @@ def _mec_rows(seed: int, kept: dict) -> dict:
     margs, kw = phase._mec_inputs(*args[:-1], "cuda")
     out = dict(asm=_mec_row("asm's largest observation set", margs, **kw,
                             cpu=True, timed=True))
-    out["asm"].update(_mec_solve_times(args, 5))
+    asm = out["asm"]
+    asm.update(_mec_solve_times(args, 5))
+    out["barriers"] = _mec_barriers()
+    from volcanosv_tpu_torch.ops import cuda_build
+    out["smem_bytes"] = phase.mec_smem_bytes(cuda_build.lib("mec"))
+    ctas = int(asm["design"].split("/")[1]) if "/" in asm["design"] else 1
+    # the half-steps one after another, each at least one barrier
+    asm["chain_ms"] = (2 * kw["n_iter"] + 1) * \
+        out["barriers"][ctas]["ns"] * 1e-6
+    asm["designs_ms"] = _mec_designs_in_turns(margs, kw["n_reads"],
+                                              kw["n_iter"], asm["snps"])
+    _log(f"phase 4b: MEC at asm's set, designs in turns (ms) "
+         f"{json.dumps(asm['designs_ms'])}; a CTA's shared memory "
+         f"{out['smem_bytes']} B; barriers (ns a half-step) "
+         f"{json.dumps(out['barriers'])}; chain_ms {asm['chain_ms']:.6f}")
+    out["one_cta_limit"] = _mec_one_cta_limit(seed)
     out["edges"] = []
     for name in MEC_EDGES:
         r, s, o, S, n_reads, n_iter, h_init, sd = _mec_edge_case(name)
         if h_init is None:
             h_init = phase.chain_init(r, s, o, S)
         h0 = phase.restart_inits(h_init, sd, 8)
-        for branch in ("block", "grid"):
-            out["edges"].append(_mec_row(name, on_card(r, s, o, h0), n_reads,
-                                         n_iter, branch=branch, cpu=True))
-    top = cuda_build.lib("mec").mec_block_max_entries()
+        for branch, c in (("smem", 1), ("smem", 2), ("smem", 16),
+                          ("grid", None)):
+            out["edges"].append(_mec_row(name, on_card(r, s, o, h0),
+                                         n_reads, n_iter, branch, c,
+                                         cpu=True))
+    S = 9000
+    r, s, o = _mec_case(np.random.default_rng(seed), 20000, S, 6)
+    top = _mec_threshold(S, len(r))
+    h0 = phase.restart_inits(phase.chain_init(r, s, o, S), seed, 8)
+    a = on_card(r, s, o, h0)
     out["threshold"] = []
     for past in (0, 1):
-        S = 9000
-        n_reads = top - S + past
-        r, s, o = _mec_case(np.random.default_rng(seed + past), n_reads, S,
-                            6)
-        h0 = phase.restart_inits(phase.chain_init(r, s, o, S), seed, 8)
-        a = on_card(r, s, o, h0)
         for branch in ("auto", "grid"):
-            row = _mec_row(f"R + S = {top + past}", a, n_reads, 5,
-                           branch=branch)
-            if branch == "auto" and row["design"] != ("grid" if past
-                                                      else "block"):
+            row = _mec_row(f"R = {top + past} at S {S}, O {len(r)}", a,
+                           top + past, 5, branch=branch)
+            if branch == "auto" and row["design"].startswith("smem") == past:
                 raise AssertionError(f"phase 4b: MEC auto took {row}")
             out["threshold"].append(row)
     t0 = time.perf_counter()
@@ -2041,6 +2218,8 @@ def phase5_run_golden(profile: bool) -> dict:
     undo = _watch_complex(complex_shapes)
     buckets, vote_reads, fullest = [], [], {}
     undo_buckets = _watch_buckets(buckets, vote_reads, fullest)
+    mec_calls, mec_kept = {}, {}
+    undo_mec = _watch(mec_calls, mec_kept, WATCHED[:1])
     STAGE_TIMES.clear()
     # always traced on the card, for the busy time; --profile adds the
     # host's ops
@@ -2059,7 +2238,10 @@ def phase5_run_golden(profile: bool) -> dict:
     finally:
         undo()
         undo_buckets()
+        undo_mec()
     kernel_launches = _counts()
+    mec_shapes = [dict(zip(("O", "NR", "S", "R"), x)) for x in
+                  _wrappers()["mec_phase"].shapes]
     pairhmm_shapes = _shape_counts(_wrappers()["pairhmm_viterbi"].shapes,
                                    ("B", "R", "W"))
     launches = {"banded_dp": ba.banded_dp.launches,
@@ -2100,12 +2282,22 @@ def phase5_run_golden(profile: bool) -> dict:
          f"design's warps (mixed: lengths differ) {json.dumps(buckets)}; "
          f"{mixed} mixed warps in {len(buckets)} launches\n"
          f"phase 5: vote launches, real reads of 64 {vote_reads}\n"
+         f"phase 5: MEC launches (O, NR, S, R) {json.dumps(mec_shapes)}\n"
          f"phase 5: device time of the pair-HMM and k-mer kernels "
          f"{json.dumps(profile_info['focus'])}")
     # the pair-HMM kernel at the run's fullest bucket, untraced
     golden_bucket = _viterbi_row(
         "the golden run's fullest bucket", *realign._bucket(*fullest["args"]),
         fullest["err"], fullest["args"][2].shape[1], True)
+    # the MEC designs at the run's largest observation set, untraced
+    from volcanosv_tpu_torch.phasing import phase
+    margs, mkw = phase._mec_inputs(*mec_kept["_mec_solve"][0][:-1], "cuda")
+    golden_mec = _mec_row("the golden run's largest observation set",
+                          margs, **mkw, timed=True)
+    golden_mec["designs_ms"] = _mec_designs_in_turns(
+        margs, mkw["n_reads"], mkw["n_iter"], golden_mec["snps"])
+    _log(f"phase 5: MEC at the run's largest set, designs in turns (ms) "
+         f"{json.dumps(golden_mec['designs_ms'])}")
     _log(f"phase 5: device busy {profile_info['busy_ms']:.1f} ms of "
          f"{run_s:.1f} s; profile {json.dumps(profile_info)}")
     gates = _golden_gates(sim_dir, out)
@@ -2114,6 +2306,7 @@ def phase5_run_golden(profile: bool) -> dict:
                 kernel_launches=kernel_launches,
                 pairhmm_viterbi_shapes=pairhmm_shapes,
                 pairhmm_buckets=buckets, golden_bucket=golden_bucket,
+                mec_shapes=mec_shapes, golden_mec=golden_mec,
                 vote_reads=vote_reads,
                 kmer_shapes=kmer_shapes, pinned=pinned,
                 busy_ms=profile_info["busy_ms"],
@@ -2735,6 +2928,10 @@ def _kmer_kernel_entries(info: dict) -> list[dict]:
         name = row["name"]
         mine = [e for e in edges if e["name"] == name]
         extra = {}
+        if name == "kmer_count":
+            extra = dict(
+                design="atomic", probes=row["probes"],
+                trace={k: v for k, v in focus.items() if "kmer_count" in k})
         if name == "kmer_vote":
             extra = dict(
                 design=row["design"], cold_ms=row["cold_ms"],
@@ -2773,6 +2970,12 @@ def _mec_kernel_entries(info: dict) -> list[dict]:
              launches_asm=info["asm"]["kernel_launches"]["mec_phase"],
              max_abs_err=0, cpu_ms=asm["cpu_ms"],
              **{k: asm[k] for k in keys}, library_ms=None,
+             chain_ms=asm["chain_ms"], designs_ms=asm["designs_ms"],
+             barriers=mec["barriers"], one_cta_limit=mec["one_cta_limit"],
+             golden_shapes=info["run"]["mec_shapes"],
+             golden_set=info["run"]["golden_mec"],
+             trace={k: v for k, v in info["run"]["profile"]["focus"].items()
+                    if "mec_" in k},
              shapes=[asm, mec["chromosome"]] + mec["threshold"]
              + mec["edges"]),
         dict(name="canonical_hashes", route="cuda",

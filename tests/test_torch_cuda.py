@@ -31,19 +31,24 @@ version's distance (float32 sums of thousands of windows round at
 
 The k-mer kernels (csrc/kmer.cu: count, unique mask, vote) are held to
 their plain versions at k 6 and 12 on tests/torch_inputs.py's cases: a
-stream counted chunk by chunk across the seams, rows with lengths, vote
+stream counted chunk by chunk across the seams, rows with lengths (the
+count also on poly-A and poly-T chunks, all-N rows and N runs at block
+seams, into tables that hold counts), vote
 chunks with empty, all-N, homopolymer and N-run rows, two zero tables,
 a 120 kb read in a 2^17-column chunk, and rows across the vote's tile
 seams (a unique k-mer's run across two seams, one k-mer in two tiles,
 partial and one-window tiles): integers, equal exactly.
 
-The MEC votes' kernel (csrc/mec.cu) is held to its plain version on
+The MEC votes' kernels (csrc/mec.cu) are held to their plain version on
 tests/torch_inputs.py's MEC edge cases, at `asm`'s shape with n_iter 0, 3
-and 30, with tied restarts, and at R + S just inside and just past one
-block's shared memory, in both of its designs (a block a restart, a grid
-of a thread a row) wherever each runs, with more than one block of the
-CSR scan's tiles, and with int64 indices: (h, a, mec) equal exactly; the
-wrappers' refusals of bad inputs.
+and 30, with tied restarts, a SNP row longer than a warp's span, rows
+without observations, S or R at 2^15 and above (32-bit entries), a slice
+too large for a CTA's shared memory, and at R just inside and just past
+the smem design's reach, in its designs (a cluster of 1, 2 or 16 CTAs a
+restart with the CSR in shared memory; a grid of a thread a row), with
+more than one block of the CSR scan's tiles, and with int64 indices: (h,
+a, mec) equal exactly; the barrier probe; the wrappers' refusals of bad
+inputs.
 canonical_hashes' kernel (csrc/kmer.cu) equals its plain version at k 1,
 12 and 16 on random int32 hashes.
 
@@ -595,14 +600,14 @@ def test_mec_phase_card_equals_cpu(cuda, n_iter):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
 
 
-def _mec_on_card(cuda, r, s, o, h0, n_reads, n_iter, branch):
+def _mec_on_card(cuda, r, s, o, h0, n_reads, n_iter, branch, ctas=None):
     """The kernel (one launch of the wrapper) against `_mec_phase_plain` on
     the same card tensors: (h, a, mec) equal, dtypes and shapes too."""
     args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
             for x in (r, s, o, h0)]
     n = phase._mec_phase.launches
     got = phase._mec_phase(*args, n_reads=n_reads, n_iter=n_iter,
-                           branch=branch)
+                           branch=branch, ctas=ctas)
     torch.cuda.synchronize()
     assert phase._mec_phase.launches == n + 1
     want = phase._mec_phase_plain(*args, n_reads=n_reads, n_iter=n_iter)
@@ -618,29 +623,34 @@ def _h0(r, s, o, S, h_init=None, seed=0):
     return phase.restart_inits(h_init, seed, 8)
 
 
+# the MEC kernel's designs: the smem design at one CTA and at clusters of 2
+# and 16 CTAs a restart, and the grid design
+MEC_DESIGNS = [("smem", 1), ("smem", 2), ("smem", 16), ("grid", None)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("branch", ["block", "grid"])
+@pytest.mark.parametrize("branch,ctas", MEC_DESIGNS)
 @pytest.mark.parametrize("case", MEC_EDGES)
-def test_mec_kernel_edges_match_plain(cuda, case, branch):
+def test_mec_kernel_edges_match_plain(cuda, case, branch, ctas):
     r, s, o, S, n_reads, n_iter, h_init, seed = mec_edge_case(case)
     _mec_on_card(cuda, r, s, o, _h0(r, s, o, S, h_init, seed), n_reads,
-                 n_iter, branch)
+                 n_iter, branch, ctas)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_iter", [0, 3, 30])
-@pytest.mark.parametrize("branch", ["auto", "block", "grid"])
-def test_mec_kernel_matches_plain(cuda, branch, n_iter):
+@pytest.mark.parametrize("branch,ctas", [("auto", None)] + MEC_DESIGNS)
+def test_mec_kernel_matches_plain(cuda, branch, ctas, n_iter):
     """`asm`'s shape: 6677 reads, 941 SNPs, about 33k observations."""
     rng = np.random.default_rng(n_iter)
     r, s, o = mec_case(rng, 6677, 941, 5)
     _mec_on_card(cuda, r, s, o, _h0(r, s, o, 941, seed=n_iter), 6677,
-                 n_iter, branch)
+                 n_iter, branch, ctas)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("branch", ["block", "grid"])
-def test_mec_kernel_picks_first_of_tied_restarts(cuda, branch):
+@pytest.mark.parametrize("branch,ctas", MEC_DESIGNS)
+def test_mec_kernel_picks_first_of_tied_restarts(cuda, branch, ctas):
     """Restarts 3 and 5 start from the chain init, the others from random
     phases: with no iteration 3 and 5 tie on the lowest MEC, and 3 wins."""
     rng = np.random.default_rng(7)
@@ -649,34 +659,94 @@ def test_mec_kernel_picks_first_of_tied_restarts(cuda, branch):
     h0[3] = h0[5] = phase.chain_init(r, s, o, 120)
     mecs = mec_restart_mecs(r, s, o, h0, 300)
     assert min(mecs) == mecs[3] == mecs[5] < min(mecs[:3])
-    got = _mec_on_card(cuda, r, s, o, h0, 300, 0, branch)
+    got = _mec_on_card(cuda, r, s, o, h0, 300, 0, branch, ctas)
     assert torch.equal(got[0].cpu(), torch.from_numpy(h0[3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctas", [1, 2, 16])
+def test_mec_kernel_long_and_empty_rows(cuda, ctas):
+    """SNP 7 observed by 5000 of 6000 reads (one thread's row of 5000
+    entries, at 16 CTAs longer than a CTA's even slice: read from global
+    memory), reads and SNPs without observations at both ends and between
+    the others: equal."""
+    rng = np.random.default_rng(ctas)
+    r, s, o = mec_case(rng, 3000, 400, 5)
+    long_r = np.sort(rng.choice(6000, 5000, replace=False)).astype(np.int32)
+    r = np.concatenate([r * 2 + 3, long_r])
+    s = np.concatenate([s + 20, np.full(5000, 7, np.int32)])
+    o = np.concatenate([o, rng.choice([-1, 1], 5000).astype(np.int8)])
+    S, n_reads = 450, 6010
+    _mec_on_card(cuda, r, s, o, _h0(r, s, o, S), n_reads, 5, "smem", ctas)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", ["snps", "reads"])
+def test_mec_kernel_wide_entries(cuda, wide):
+    """S or R at 2^15 and above: the smem design's entries are 32-bit;
+    equal at one CTA and at a cluster."""
+    rng = np.random.default_rng(5)
+    n_reads, S = (4000, 2**15 + 3) if wide == "snps" else (2**15 + 40, 900)
+    r, s, o = mec_case(rng, min(n_reads, 4000), min(S, 900), 5)
+    if wide == "snps":
+        s = (s.astype(np.int64) * 37 % S).astype(np.int32)
+    else:
+        r = (r.astype(np.int64) * 9 % n_reads).astype(np.int32)
+    h0 = _h0(r, s, o, S)
+    for ctas in (1, 4):
+        _mec_on_card(cuda, r, s, o, h0, n_reads, 3, "smem", ctas)
+
+
+def _mec_threshold(S, O):
+    """The most reads R that mec_design still gives the smem design for S
+    SNPs and O observations."""
+    lo, hi = 1, 1 << 20
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if phase.mec_design(S, mid, O)[0] == "smem":
+            lo = mid
+        else:
+            hi = mid
+    return lo
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("side", ["inside", "past"])
 def test_mec_kernel_at_the_shared_memory_threshold(cuda, side):
-    """R + S at the block design's largest and one more: "auto" takes the
-    block design inside and the grid design past it, where "block" is
-    refused; the grid design is right on both sides."""
-    from volcanosv_tpu_torch.ops import cuda_build
-    lib = cuda_build.lib("mec")
-    top = lib.mec_block_max_entries()
-    assert top > 50_000
+    """R at the smem design's largest for these S and O, and one more:
+    "auto" takes the smem design inside and the grid design past it; equal
+    to the grid design on both sides.  The smem design refuses an R whose
+    h, a and row offsets do not fit."""
     S = 9000
-    n_reads = top - S + (side == "past")
-    rng = np.random.default_rng(top)
-    r, s, o = mec_case(rng, n_reads, S, 6)
+    rng = np.random.default_rng(1)
+    r, s, o = mec_case(rng, 20000, S, 6)
+    top = _mec_threshold(S, len(r))
+    assert top > 20000
+    n_reads = top + (side == "past")
     h0 = _h0(r, s, o, S)
-    assert lib.mec_phase_branch(S, n_reads) == (1 if side == "inside" else 2)
+    design = phase.mec_design(S, n_reads, len(r))
+    assert design[0] == ("smem" if side == "inside" else "grid")
     auto = _mec_on_card(cuda, r, s, o, h0, n_reads, 5, "auto")
     grid = _mec_on_card(cuda, r, s, o, h0, n_reads, 5, "grid")
     assert all(torch.equal(x, y) for x, y in zip(auto, grid))
-    if side == "past":
-        with pytest.raises(ValueError):
-            phase._mec_phase(*(torch.from_numpy(x).to(cuda)
-                               for x in (r, s, o, h0)),
-                             n_reads=n_reads, n_iter=5, branch="block")
+    with pytest.raises(ValueError):
+        phase._mec_phase(*(torch.from_numpy(x).to(cuda)
+                           for x in (r, s, o, h0)),
+                         n_reads=300_000, n_iter=5, branch="smem", ctas=16)
+
+
+@pytest.mark.cuda
+def test_mec_kernel_slice_past_shared_memory(cuda):
+    """SNP 0 observed by all of 120,000 reads (32-bit entries): at 16 CTAs
+    the CTA holding its row cannot keep its 480 KB of entries in shared
+    memory and reads them from global memory; equal."""
+    rng = np.random.default_rng(12)
+    n_reads, S = 120_000, 64
+    r, s, o = mec_case(rng, 2000, S, 4)
+    r = np.concatenate([r * 60, np.arange(n_reads, dtype=np.int32)])
+    s = np.concatenate([s, np.zeros(n_reads, np.int32)])
+    o = np.concatenate([o, rng.choice([-1, 1], n_reads).astype(np.int8)])
+    _mec_on_card(cuda, r, s, o, _h0(r, s, o, S), n_reads, 4, "smem", 16)
 
 
 @pytest.mark.cuda
@@ -689,6 +759,22 @@ def test_mec_kernel_scans_many_tiles(cuda):
     r = (r.astype(np.int64) * 1433) % n_reads
     _mec_on_card(cuda, r, s.astype(np.int64), o, _h0(r, s, o, S), n_reads,
                  3, "auto")
+
+
+@pytest.mark.cuda
+def test_mec_sync_chase_and_limits(cuda):
+    """The barrier probe runs at 1, 2 and 16 CTAs, and a CTA of the smem
+    design takes more than 200,000 bytes of shared memory."""
+    from volcanosv_tpu_torch.ops import cuda_build
+    lib = cuda_build.lib("mec")
+    assert phase.mec_smem_bytes(lib) > 200_000
+    out = torch.zeros(2, dtype=torch.int64, device=cuda)
+    for ctas in (1, 2, 16):
+        cuda_build.check(lib.mec_sync_chase(
+            ctas, 1000, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream), "chase", "mec")
+        torch.cuda.synchronize()
+        assert int(out[0]) > 0 and int(out[1]) > 0
 
 
 @pytest.mark.cuda
@@ -785,6 +871,32 @@ def test_kmer_count_kernel_matches_plain(cuda, k):
         base.to(cuda), c, k, ln))
     assert torch.equal(got.cpu(), kmer._kmer_count_plain(
         base.clone(), c.cpu(), k, ln.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [6, 12])
+def test_kmer_count_kernel_edge_chunks(cuda, k):
+    """A 2^17-code chunk of one repeated k-mer (poly-A: hash 0, all its
+    atomics on one word), one of poly-T (hash 4^k - 1, the table's last
+    word), an all-N row and random rows with N runs across thread and
+    block seams, each added to a table that already holds counts: equal
+    to the plain version."""
+    rng = np.random.default_rng(k + 40)
+    L = 1 << 17
+    codes = rng.integers(0, 4, (4, L)).astype(np.int8)
+    codes[0] = 0
+    codes[1] = 3
+    codes[2] = 4
+    codes[3, 8190:8200] = 4
+    codes[3, 16380:16384] = 4
+    base = torch.from_numpy(rng.integers(0, 5, 4**k).astype(np.int32))
+    for rows in ([0], [1], [2], [0, 1, 2, 3]):
+        c = torch.from_numpy(codes[rows]).to(cuda)
+        got = _launched(kmer.kmer_count_into, lambda: kmer.kmer_count_into(
+            base.to(cuda), c, k))
+        want = kmer._kmer_count_plain(base.clone(), c.cpu(), k)
+        assert torch.equal(got.cpu(), want)
+    assert int(want[0]) >= L - k + 1 and int(want[4**k - 1]) >= L - k + 1
 
 
 @pytest.mark.cuda

@@ -168,3 +168,24 @@ def test_wrappers_reject_bad_inputs():
     for args in bad_vote:
         with pytest.raises(ValueError):
             kmer.kmer_vote(*args)
+
+
+
+@pytest.mark.parametrize("k", [6, 12])
+def test_kmer_count_into_edge_chunks_match_jax(k):
+    """Chunks of one repeated k-mer (poly-A: hash 0; poly-T: hash 4^k - 1),
+    an all-N chunk and a random one with N runs, each added to a table that
+    already holds counts: the JAX package's count plus the counts (the
+    card tests hold the kernel to the same chunks)."""
+    rng = np.random.default_rng(k + 40)
+    codes = rng.integers(0, 4, (4, 5000)).astype(np.int8)
+    codes[0], codes[1], codes[2] = 0, 3, 4
+    codes[3, 2040:2050] = 4
+    base = rng.integers(0, 5, 4**k).astype(np.int32)
+    for row in codes:
+        got = kmer.kmer_count_into(torch.from_numpy(base.copy()),
+                                   torch.from_numpy(row)[None], k)
+        want = base + _ref_count([row], k)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert _ref_count([codes[0]], k)[0] == 5000 - k + 1
+    assert _ref_count([codes[1]], k)[4**k - 1] == 5000 - k + 1

@@ -119,3 +119,55 @@ def test_cpu_wrappers_refuse_bad_inputs():
             kmer.canonical_hashes(x, bad_k)
     with pytest.raises(ValueError):
         kmer.canonical_hashes(x.long(), 12)
+
+
+def test_mec_smem_need_counts_bytes():
+    """`asm`'s set at one CTA: int8 h and a, the 32-bit offsets of every
+    row and 16-bit entries; at 8 CTAs the slices' bound; 32-bit entries at
+    S or R of 2^15."""
+    assert phase.mec_smem_need(941, 6677, 27876, 1) == (
+        944 + 6688 + 26720 + 3776, 944 + 6688 + 26720 + 3776 + 111504)
+    fixed, full = phase.mec_smem_need(941, 6677, 27876, 8)
+    assert fixed == 944 + 6688 + 17296 + 3776     # 4320 + 1 read offsets
+    assert full == fixed + 15856                  # 4320 + 3603 entries
+    assert phase.mec_smem_need(2**15, 100, 1000, 1)[1] - \
+        phase.mec_smem_need(2**15, 100, 1000, 1)[0] == 8000
+    assert phase.mec_smem_need(2**15 - 1, 100, 1000, 1)[1] - \
+        phase.mec_smem_need(2**15 - 1, 100, 1000, 1)[0] == 4000
+
+
+@pytest.mark.parametrize("S,R,O,want", [
+    (941, 6677, 27876, ("smem", 8)),          # asm's set
+    (155, 1193, 4865, ("smem", 1)),           # the golden run's largest
+    (9000, 20000, 120000, ("smem", 8)),
+    (9000, 20000, 200000, ("grid", 0)),       # past 8 CTAs' slices
+    (166_667, 833_333, 5_003_438, ("grid", 0)),   # a chromosome
+    (0, 0, 0, ("smem", 1)),
+    (100, 40000, 9000, ("smem", 8)),          # one CTA's offsets too large
+])
+def test_mec_plan_picks_the_design(S, R, O, want):
+    """One CTA a restart up to MEC_ONE_CTA_MAX_OBS observations, else 8,
+    where a CTA holds its whole slice (H100: 232,288 bytes a CTA); else the
+    grid design."""
+    assert phase.mec_plan(S, R, O, 232_288) == want
+
+
+def test_mec_plan_one_cta_up_to_the_limit():
+    """The cluster size changes one observation past MEC_ONE_CTA_MAX_OBS,
+    and a CTA's shared memory too small for 8 CTAs' slices gives the grid
+    design at any O."""
+    top = phase.MEC_ONE_CTA_MAX_OBS
+    assert phase.mec_plan(150, 1200, top, 232_288) == ("smem", 1)
+    assert phase.mec_plan(150, 1200, top + 1, 232_288) == \
+        ("smem", phase.MEC_CLUSTER_CTAS)
+    assert phase.mec_plan(150, 1200, top, 1000) == ("grid", 0)
+    assert phase.mec_plan(150, 1200, top + 1, 1000) == ("grid", 0)
+
+
+def test_mec_phase_refuses_bad_cluster_sizes():
+    r, s, o, _S, n_reads, _n_iter, _h, _seed, h0 = _port_inputs("n_iter_1")
+    args = [torch.from_numpy(x) for x in (r, s, o, h0)]
+    for ctas in (0, 17):
+        with pytest.raises(ValueError):
+            phase._mec_phase(*args, n_reads=n_reads, n_iter=1,
+                             branch="smem", ctas=ctas)

@@ -22,7 +22,14 @@
 // the position of the last N read decides validity.  Bound: the codes read
 // once, then one atomic a valid window on a random 4-byte word of a 67 MB
 // table (k = 12), more than the 50 MB L2: a 32-byte sector read and written
-// for each distinct sector touched.
+// for each distinct sector touched.  What sets its time, from three probe
+// instances of this kernel (`PROBE`, chip_smoke.py phase 4b; PERF.md): the
+// hashing alone (2: the atomic predicated on an impossible hash) is a
+// sixth of it, and with every atomic an L2 hit (1: the hashes masked into
+// the table's first 2^18 words, 1 MB) it is still 86% of it: the L2's rate
+// of atomics, not DRAM sectors, sets it.  Binned counting in shared memory
+// (a pass that sorts the hashes by table slice, a pass that counts a slice
+// a block) measured slower at every chunk size and was not kept.
 //
 // unique_mask_kernel: (H, N) int32 tables -> (H, N) bool, present in exactly
 // one table.  A thread a k-mer, reading its H counts (coalesced along N) and
@@ -74,6 +81,7 @@ constexpr int CODE_N = 4;
 constexpr int RUN = 16;                   // windows a thread walks (count)
 constexpr int COUNT_THREADS = 256;
 constexpr int COUNT_TILE = RUN * COUNT_THREADS;
+constexpr unsigned PROBE_SLICE = (1u << 18) - 1;  // 1 MB of int32
 constexpr int UNIQUE_THREADS = 256;
 constexpr int VOTE_RUN = 8;               // windows a thread walks (vote)
 constexpr int MAX_H = 32;
@@ -97,6 +105,10 @@ __device__ __forceinline__ void roll(const int8_t* row, int p, int k,
   if (c == CODE_N) last_n = p;
 }
 
+// PROBE 0: the count; 1 and 2 are kmer_count_probe_launch's probes, on no
+// path (1: each hash masked into the table's first 2^18 words, 2: the atomic
+// predicated on an impossible hash).
+template <int PROBE>
 __global__ void __launch_bounds__(COUNT_THREADS)
 kmer_count_kernel(const int8_t* __restrict__ codes,
                   const int* __restrict__ lens, int L, int k,
@@ -114,7 +126,8 @@ kmer_count_kernel(const int8_t* __restrict__ codes,
   for (int p = w0; p < w0 + k - 1; ++p) roll(row, p, k, h, last_n);
   for (int w = w0; w < w1; ++w) {
     roll(row, w + k - 1, k, h, last_n);
-    if (last_n < w) atomicAdd(table + h, 1);
+    if (PROBE == 2 ? h == 0xffffffffu : last_n < w)
+      atomicAdd(table + (PROBE == 1 ? h & PROBE_SLICE : h), 1);
   }
 }
 
@@ -278,20 +291,44 @@ extern "C" const char* kmer_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+namespace {
+
+int count_launch(const void* codes, const void* lens, int B, int L, int k,
+                 void* table, int probe, void* stream) {
+  if (B <= 0 || k < 1 || k > 15 || L < k) return (int)cudaErrorInvalidValue;
+  const int tiles = (L - k + 1 + COUNT_TILE - 1) / COUNT_TILE;
+  const long long blocks = (long long)tiles * B;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const auto kernel = probe == 0 ? kmer_count_kernel<0>
+                      : probe == 1 ? kmer_count_kernel<1>
+                                   : kmer_count_kernel<2>;
+  kernel<<<(int)blocks, COUNT_THREADS, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(codes), static_cast<const int*>(lens), L, k,
+      tiles, static_cast<int*>(table));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // table[h] += 1 for each valid window of codes (B, L) int8 on `stream`;
 // lens (B,) int32 or null; table (4^k,) int32, accumulated in place;
 // 1 <= k <= 15, L >= k.  Returns the cudaError_t of the launch.
 extern "C" int kmer_count_launch(const void* codes, const void* lens, int B,
                                  int L, int k, void* table, void* stream) {
-  if (B <= 0 || k < 1 || k > 15 || L < k) return (int)cudaErrorInvalidValue;
-  const int tiles = (L - k + 1 + COUNT_TILE - 1) / COUNT_TILE;
-  const long long blocks = (long long)tiles * B;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  kmer_count_kernel<<<(int)blocks, COUNT_THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(codes), static_cast<const int*>(lens), L, k,
-      tiles, static_cast<int*>(table));
-  return (int)cudaGetLastError();
+  return count_launch(codes, lens, B, L, k, table, 0, stream);
+}
+
+// The count kernel as a probe of what sets its time (chip_smoke.py, phase
+// 4b), on no path: probe 1 adds each window's hash masked into the table's
+// first 2^18 words (k >= 9, so the table holds them), 2 hashes and adds
+// nothing (the atomic predicated on an impossible hash), 0 is the count.
+extern "C" int kmer_count_probe_launch(const void* codes, const void* lens,
+                                       int B, int L, int k, void* table,
+                                       int probe, void* stream) {
+  if (probe < 0 || probe > 2 || (probe == 1 && k < 9))
+    return (int)cudaErrorInvalidValue;
+  return count_launch(codes, lens, B, L, k, table, probe, stream);
 }
 
 // out (H, N) bool (one byte each) = present in exactly one of tables (H, N)

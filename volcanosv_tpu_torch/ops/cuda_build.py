@@ -79,6 +79,9 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
         cl = ctypes.c_longlong
         lib.kmer_count_launch.argtypes = [vp, vp] + [ci] * 3 + [vp, vp]
         lib.kmer_count_launch.restype = ci
+        lib.kmer_count_probe_launch.argtypes = \
+            [vp, vp] + [ci] * 3 + [vp, ci, vp]
+        lib.kmer_count_probe_launch.restype = ci
         lib.unique_mask_launch.argtypes = [vp, ci, cl, vp, vp]
         lib.unique_mask_launch.restype = ci
         lib.kmer_vote_scratch_ints.argtypes = [ci] * 4
@@ -90,14 +93,14 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
         lib.canonical_hashes_launch.restype = ci
     elif name == "mec":
         cl = ctypes.c_longlong
-        lib.mec_block_max_entries.argtypes = []
-        lib.mec_block_max_entries.restype = ci
-        lib.mec_phase_branch.argtypes = [ci, ci]
-        lib.mec_phase_branch.restype = ci
+        lib.mec_smem_bytes.argtypes = []
+        lib.mec_smem_bytes.restype = ci
+        lib.mec_sync_chase.argtypes = [ci, ci, vp, vp]
+        lib.mec_sync_chase.restype = ci
         lib.mec_scratch_bytes.argtypes = [ci] * 3 + [cl]
         lib.mec_scratch_bytes.restype = cl
         lib.mec_phase_launch.argtypes = \
-            [vp, ci, vp, ci, vp, cl, vp] + [ci] * 5 + [vp, cl] + [vp] * 4
+            [vp, ci, vp, ci, vp, cl, vp] + [ci] * 6 + [vp, cl] + [vp] * 4
         lib.mec_phase_launch.restype = ci
 
 

@@ -16,9 +16,10 @@ optima.  The random inits are the reference's `jax.random` draws,
 reproduced bit for bit by utils/threefry.py, so every restart is the
 reference's.  `_mec_phase` runs the hand-written CUDA kernels
 (`csrc/mec.cu`: a counting sort of the observations into CSR order on the
-card, then row sums; a block a restart, or a grid over the rows at
-chromosome scale) for CUDA tensors and `_mec_phase_plain` (torch ops, the
-restarts a batch dimension, `index_add_` for the sums) for CPU tensors.
+card, then row sums; a cluster of 1-16 CTAs a restart with the CSR in
+shared memory, or a grid over the rows at chromosome scale, as `mec_plan`
+picks) for CUDA tensors and `_mec_phase_plain` (torch ops, the restarts a
+batch dimension, `index_add_` for the sums) for CPU tensors.
 
 Phase blocks: consecutive het SNPs stay in one block iff some read covers
 both (connectivity sweep); per-block sign is arbitrary, as in any phaser.
@@ -110,9 +111,71 @@ def _mec_phase_plain(obs_read: torch.Tensor, obs_snp: torch.Tensor,
     return h[best], a[best], mecs[best]
 
 
-_BRANCHES = {"auto": 0, "block": 1, "grid": 2}
+_BRANCHES = {"auto": 0, "smem": 1, "grid": 2}
 MAX_RESTARTS = 64
 MAX_NODES = 2**30           # reads and SNPs: a CSR entry packs node * 2 + sign
+MEC_MAX_CTAS = 16           # a thread-block cluster's most CTAs (non-portable)
+# The smem design's CTAs a restart: one up to MEC_ONE_CTA_MAX_OBS
+# observations, where a cluster barrier (0.75 us a half-step on an H100)
+# costs more than splitting the walk saves (the golden run's sets, O 4-5k),
+# and MEC_CLUSTER_CTAS above (`asm`'s set, O 28k).  chip_smoke.py's phase
+# 4b times one CTA against 8 in turns from O 4,874 to 19,097
+# (`_mec_one_cta_limit`, PERF.md §6): one CTA was faster up to O 12,199
+# (by 1% there) and 8 from O 14,414 on.
+MEC_ONE_CTA_MAX_OBS = 12_500
+MEC_CLUSTER_CTAS = 8
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def mec_smem_need(S: int, R: int, O: int, ctas: int) -> tuple[int, int]:
+    """Bytes of one CTA's shared memory in the smem design at `ctas` CTAs a
+    restart, for S SNPs, R reads and at most O informative observations:
+    (what must fit: int8 h and a, the 32-bit row offsets of its slice of
+    each order, at most ceil((rows + O) / ctas) rows and all at one CTA;
+    with the entries of an even slice, 16-bit where S and R are below 2^15,
+    else 32-bit).  The twin of csrc/mec.cu::smem_need."""
+    def per_cta(n):
+        return -(-(n + O) // ctas)
+    rows_r, rows_s = min(R, per_cta(R)), min(S, per_cta(S))
+    ent = min(O, per_cta(R)) + min(O, per_cta(S))
+    esize = 2 if S < 2**15 and R < 2**15 else 4
+    fixed = _round16(S) + _round16(R) + _round16(4 * (rows_r + 1)) + \
+        _round16(4 * (rows_s + 1))
+    return fixed, fixed + _round16(esize * ent)
+
+
+def mec_plan(S: int, R: int, O: int, smem_bytes: int) -> tuple[str, int]:
+    """The MEC kernels' design for S SNPs, R reads and O observations:
+    ("smem", ctas) at one CTA a restart up to MEC_ONE_CTA_MAX_OBS
+    observations, else (or where one CTA's slice does not fit) at
+    MEC_CLUSTER_CTAS, where each CTA holds its whole slice in `smem_bytes`
+    of shared memory (mec_smem_need); else ("grid", 0)."""
+    first = 1 if O <= MEC_ONE_CTA_MAX_OBS else MEC_CLUSTER_CTAS
+    for ctas in (first, MEC_CLUSTER_CTAS):
+        if mec_smem_need(S, R, O, ctas)[1] <= smem_bytes:
+            return "smem", ctas
+    return "grid", 0
+
+
+_SMEM_BYTES = {}
+
+
+def mec_smem_bytes(lib) -> int:
+    """The shared memory a CTA of the smem design takes on the current
+    device (csrc/mec.cu), asked once a device."""
+    dev = torch.cuda.current_device()
+    if dev not in _SMEM_BYTES:
+        _SMEM_BYTES[dev] = lib.mec_smem_bytes()
+    return _SMEM_BYTES[dev]
+
+
+def mec_design(S: int, R: int, O: int) -> tuple[str, int]:
+    """`mec_plan` on the current CUDA device."""
+    from ..ops import cuda_build
+    return mec_plan(S, R, O, mec_smem_bytes(cuda_build.lib("mec")))
 
 
 def _mec_check(obs_read, obs_snp, obs_allele, h0, n_reads: int,
@@ -149,21 +212,24 @@ def _mec_check(obs_read, obs_snp, obs_allele, h0, n_reads: int,
 
 def _mec_phase(obs_read: torch.Tensor, obs_snp: torch.Tensor,
                obs_allele: torch.Tensor, h0: torch.Tensor, *, n_reads: int,
-               n_iter: int, branch: str = "auto"):
+               n_iter: int, branch: str = "auto", ctas: int | None = None):
     """(h, a, mec) of the best of the restarts, as `_mec_phase_plain`
     computes them: h (S,) int32, a (n_reads,) int32, mec a 0-d int64.
     obs_read / obs_snp (O,) int32 (or int64), obs_allele (O,) int8, h0
-    (n_restarts, S) int32 (restart_inits).  The CUDA kernels (`csrc/mec.cu`,
-    on the current stream) for CUDA tensors: the observations sorted into
-    CSR order on the card, then the votes by `branch`: "block" (a block a
-    restart, R + S within one block's shared memory), "grid" (a grid over
-    the rows, any size) or "auto" (block where it fits).
-    `_mec_phase_plain` for CPU tensors.  Each launch appends (O,
-    n_restarts, S, n_reads) to `_mec_phase.shapes`."""
+    (n_restarts, S) int32 of ±1 (restart_inits).  The CUDA kernels
+    (`csrc/mec.cu`, on the current stream) for CUDA tensors: the
+    observations sorted into CSR order on the card, then the votes by
+    `branch`: "smem" (a cluster of `ctas` CTAs a restart, 1-16, default
+    MEC_CLUSTER_CTAS, the CSR in shared memory; its h, a and row offsets
+    must fit, `mec_smem_need`), "grid" (a grid over the rows, any size) or
+    "auto" (`mec_design`).  `_mec_phase_plain` for CPU tensors.  Each
+    launch appends (O, n_restarts, S, n_reads) to `_mec_phase.shapes`."""
     if branch not in _BRANCHES:
         raise ValueError(f"_mec_phase: branch {branch!r} not in "
                          f"{list(_BRANCHES)}")
     dev = _mec_check(obs_read, obs_snp, obs_allele, h0, n_reads, n_iter)
+    if ctas is not None and not 1 <= ctas <= MEC_MAX_CTAS:
+        raise ValueError(f"_mec_phase: ctas {ctas} outside 1..{MEC_MAX_CTAS}")
     if dev == "cpu":
         return _mec_phase_plain(obs_read, obs_snp, obs_allele, h0,
                                 n_reads=n_reads, n_iter=n_iter)
@@ -171,13 +237,17 @@ def _mec_phase(obs_read: torch.Tensor, obs_snp: torch.Tensor,
     lib = cuda_build.lib("mec")
     n_obs = obs_read.numel()
     n_restarts, S = h0.shape
-    code = _BRANCHES[branch]
     x = h0.device
     with torch.cuda.device(x):
-        if code == _BRANCHES["block"] and \
-                S + n_reads > lib.mec_block_max_entries():
-            raise ValueError(f"_mec_phase: R + S = {S + n_reads} exceeds the "
-                             f"block design's shared memory")
+        smem = mec_smem_bytes(lib)
+        if branch == "auto":
+            branch, ctas = mec_plan(S, n_reads, n_obs, smem)
+        elif branch == "smem":
+            ctas = ctas or MEC_CLUSTER_CTAS
+            if mec_smem_need(S, n_reads, n_obs, ctas)[0] > smem:
+                raise ValueError(f"_mec_phase: S {S} and R {n_reads} exceed "
+                                 f"the smem design's shared memory at "
+                                 f"{ctas} CTAs")
         n_bytes = lib.mec_scratch_bytes(n_restarts, S, n_reads, n_obs)
         scratch = torch.empty(n_bytes, dtype=torch.uint8, device=x)
         h = torch.empty(S, dtype=torch.int32, device=x)
@@ -187,9 +257,9 @@ def _mec_phase(obs_read: torch.Tensor, obs_snp: torch.Tensor,
             obs_read.data_ptr(), obs_read.dtype == torch.int64,
             obs_snp.data_ptr(), obs_snp.dtype == torch.int64,
             obs_allele.data_ptr(), n_obs, h0.data_ptr(), n_restarts, S,
-            n_reads, n_iter, code, scratch.data_ptr(), n_bytes, h.data_ptr(),
-            a.data_ptr(), mec.data_ptr(),
-            torch.cuda.current_stream(x).cuda_stream)
+            n_reads, n_iter, _BRANCHES[branch], ctas or 0,
+            scratch.data_ptr(), n_bytes, h.data_ptr(), a.data_ptr(),
+            mec.data_ptr(), torch.cuda.current_stream(x).cuda_stream)
     cuda_build.check(rc, "mec_phase launch", "mec")
     _mec_phase.launches += 1
     _mec_phase.shapes.append((n_obs, n_restarts, S, n_reads))
