@@ -164,10 +164,16 @@ Phase 6  QC and SD recovery on the card, each with `--device cuda` and
          versions on the card and on the CPU: labels equal, the kernel's
          posteriors no further from a float64 forward-backward than twice
          the CPU's, each timed beside its bound; both kernels again on
-         tie-rich ragged batches (S 3-5, T 1, 2 and 300, an all-padded
-         row, two states of one mean) and at qc's launch shape (labels
-         equal, posteriors within 1e-5 or twice the CPU's distance); both
-         must have launched during `qc`;
+         tie-rich ragged batches (S 3-5, T 1, 2, 241 and 300, and T 4915
+         and 4928 at S 4: the plans' segment edges; an all-padded row, two
+         states of one mean) and at qc's launch shape (labels equal,
+         posteriors within 1e-5 or twice the CPU's distance), each timed
+         with its cycles a step on the design's longest chain, and the
+         Viterbi's step alone (`viterbi_step_chase`: one warp, and one and
+         two a scheduler) for its forward walk's `chain_ms`, and at the
+         chromosome batch and qc's shape its split backtrace against
+         one serial walk (the same kernel at one segment, in turns, equal
+         labels); both must have launched during `qc`;
          `sd_recover` on tests/test_sd_recovery.py's recipe (equal
          contigs, a re-assembled hap swapped in); `asm --sd` on phase 4b's
          HiFi case (final_contigs.fa and phased_snps.vcf byte-identical).
@@ -2374,6 +2380,104 @@ def _hmm_ops(S: int, kind: str) -> int:
     return 4 * S + 2 * (4 * S * S + 4 * S) + 5 * S
 
 
+# the SM clock (the boost clock) that turns a kernel's ms into cycles
+SM_HZ = 1.98e9
+
+
+def _coverage_chain(kind: str, B: int, T: int, S: int) -> int:
+    """Window steps on a contig's longest dependent chain in a coverage
+    kernel's design (qc/flagger.py's plans): the Viterbi's forward walk
+    (T - 1), then its backtrace (a segment's map, the walk over the
+    segments' maps, a segment's windows); the forward-backward's segment
+    matrix, the boundary walk (forward and backward side by side) and the
+    segment's windows forward and back."""
+    from volcanosv_tpu_torch.qc import flagger
+    if kind == "viterbi":
+        p = flagger.viterbi_plan(B, T, S)
+        return T - 1 + 2 * p.seg + p.segs - 1
+    p = flagger.coverage_plan(B, T, S)
+    return 3 * p.seg + p.segs - 1
+
+
+def _coverage_timed(kind: str, emit: tuple) -> dict:
+    """A coverage kernel's device ms a call at these emissions, the steps
+    on its longest chain (`_coverage_chain`) and its cycles a step."""
+    from volcanosv_tpu_torch.qc import flagger
+    T, B, S = emit[0].shape
+    kernel = getattr(flagger, f"coverage_{kind}")
+    ms = _time_queued_ms(lambda: kernel(*emit))
+    steps = _coverage_chain(kind, B, T, S)
+    return dict(ms=ms, chain_steps=steps,
+                cycles_per_step=ms * 1e-3 * SM_HZ / steps)
+
+
+def _viterbi_backtrace_split(emit: tuple) -> dict:
+    """The Viterbi kernel at its plan's backtrace split against one serial
+    walk over the packed pointers (the same kernel launched with one
+    segment of T windows), in turns (`_time_turns`): equal labels, and the
+    ms a call of each."""
+    import torch
+
+    from volcanosv_tpu_torch.ops import cuda_build
+    from volcanosv_tpu_torch.qc import flagger
+    lib = cuda_build.lib("coverage_hmm")
+    T, B, S = emit[0].shape
+    plan = flagger.viterbi_plan(B, T, S)
+    scratch = torch.empty(plan.scratch, dtype=torch.uint8, device="cuda") \
+        if plan.scratch else None
+    labels = {n: torch.empty((B, T), dtype=torch.int8, device="cuda")
+              for n in ("split", "serial")}
+
+    def launch(name, L, Q):
+        def fn():
+            cuda_build.check(lib.coverage_viterbi_launch(
+                *(x.data_ptr() for x in emit), B, T, S, L, Q, plan.contigs,
+                scratch.data_ptr() if scratch is not None else None,
+                labels[name].data_ptr(),
+                torch.cuda.current_stream().cuda_stream),
+                "coverage_viterbi launch", "coverage_hmm")
+        return fn
+
+    fns = {"split": launch("split", plan.seg, plan.segs),
+           "serial": launch("serial", T, 1)}
+    for fn in fns.values():
+        fn()
+    if not torch.equal(labels["split"], labels["serial"]):
+        raise AssertionError("phase 6: the Viterbi's split backtrace != "
+                             "its serial walk")
+    ms = _time_turns(fns)
+    return dict(segments=plan.segs, split_ms=ms["split"],
+                serial_ms=ms["serial"])
+
+
+def _viterbi_step_latency() -> dict:
+    """The Viterbi forward walk's step (csrc/coverage_hmm.cu::viterbi_step
+    at S = 4), timed by `viterbi_step_chase` over 2^16 steps: cycles and ns
+    a step of one warp alone, of one warp on each of an SM's four
+    schedulers, and of two on each (twice the cycles there: the
+    scheduler's instruction rate sets the step; the same: its latency)."""
+    import numpy as np
+    import torch
+
+    from volcanosv_tpu_torch.ops import cuda_build
+    lib = cuda_build.lib("coverage_hmm")
+    rng = np.random.default_rng(11)
+    init = torch.tensor(np.concatenate([np.log(rng.dirichlet(np.ones(4), 4))
+                                        .ravel(), rng.normal(0, 3, 32)]),
+                        dtype=torch.float32, device="cuda")
+    out = torch.zeros(3, dtype=torch.int64, device="cuda")
+    n = 1 << 16
+    res = {}
+    for warps in (1, 4, 8):
+        cuda_build.check(lib.viterbi_step_chase(
+            init.data_ptr(), warps, n, out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream),
+            "viterbi_step_chase", "coverage_hmm")
+        cycles, ns, _ = out.tolist()
+        res[f"warps_{warps}"] = dict(cycles=cycles / n, ns=ns / n)
+    return res
+
+
 def _coverage_case(seed: int):
     """(cov (B, T) float64, valid (B, T), contig lengths): the padded
     batch evaluate_assembly builds, at chromosome scale."""
@@ -2529,7 +2633,8 @@ def _hmm_at_scale(seed: int, qc_shapes: list) -> dict:
         on_card, plain_ms = _timed_once(lambda: plain(*emit["cuda"]))
         got = kernel(*emit["cuda"]).cpu().numpy()
         on_card = on_card.cpu().numpy()
-        ms = _time_queued_ms(lambda: kernel(*emit["cuda"]))
+        timed = _coverage_timed(kind, emit["cuda"])
+        ms = timed["ms"]
         # the method as qc calls it: emissions made on the card, the
         # kernel, the result copied to the host
         t0 = time.perf_counter()
@@ -2537,12 +2642,17 @@ def _hmm_at_scale(seed: int, qc_shapes: list) -> dict:
         method_ms = (time.perf_counter() - t0) * 1e3
         out_bytes = 1 if kind == "viterbi" else 4 * S
         row = dict(name=f"coverage_{kind}", B=B, T=T, S=S,
-                   windows=int(valid.sum()), ms=ms, plain_ms=plain_ms,
-                   cpu_ms=cpu_ms, method_ms=method_ms,
+                   windows=int(valid.sum()), plain_ms=plain_ms,
+                   cpu_ms=cpu_ms, method_ms=method_ms, **timed,
                    **_bound(n_win * (5 + out_bytes), n_win * _hmm_ops(S, kind),
                             FP32_OPS_PER_S))
         row["share_of_bound"] = row["bound_ms"] / ms
         if kind == "viterbi":
+            # the forward walk's floor: T - 1 steps of one warp alone
+            step = _viterbi_step_latency()
+            row.update(step_probe=step,
+                       chain_ms=(T - 1) * step["warps_1"]["ns"] * 1e-6,
+                       backtrace=_viterbi_backtrace_split(emit["cuda"]))
             # emissions and transitions are the same bits on both devices
             # and the recursion is adds and maxes: the labels are equal
             if not (np.array_equal(got, on_card)
@@ -2582,7 +2692,8 @@ def _hmm_at_scale(seed: int, qc_shapes: list) -> dict:
 # tests/torch_inputs.py::hmm_tie_case's inputs, copied since the smoke run
 # imports no tests
 HMM_EDGES = [(S, B, T) for S in (3, 4, 5) for B, T in ((3, 1), (3, 2),
-                                                       (8, 300))]
+                                                       (8, 300), (9, 241))] \
+    + [(4, 9, 4915), (4, 9, 4928)]
 STATE_MULTS = {3: [0.05, 1.0, 2.0], 4: [0.05, 0.5, 1.0, 2.0],
                5: [0.05, 0.5, 1.0, 2.0, 4.0]}
 
@@ -2611,7 +2722,7 @@ def _hmm_edges(qc_shapes: list) -> list[dict]:
     on the CPU at HMM_EDGES and at qc's most launched (B, T, S), on
     tie-rich inputs: labels equal; posteriors no further from float64 than
     1e-5 or twice the CPU's distance (tests/test_torch_qc.py's tolerance).
-    qc's shape is timed too."""
+    Each shape is timed, and qc's plain versions too."""
     from collections import Counter
 
     import numpy as np
@@ -2649,14 +2760,15 @@ def _hmm_edges(qc_shapes: list) -> list[dict]:
         if not row["labels_equal"] or card_err > row["tolerance"]:
             raise AssertionError(f"phase 6: coverage kernels != plain "
                                  f"{json.dumps(row)}")
+        for kind in ("viterbi", "posteriors"):
+            row[kind] = _coverage_timed(kind, emit["cuda"])
         if name == "qc's top shape":
             for kind in ("viterbi", "posteriors"):
-                kernel = getattr(flagger, f"coverage_{kind}")
                 plain = getattr(flagger, f"_{kind}_plain")
-                row[f"{kind}_ms"] = _time_queued_ms(
-                    lambda: kernel(*emit["cuda"]))
-                row[f"{kind}_plain_ms"] = _timed_once(
+                row[kind]["plain_ms"] = _timed_once(
                     lambda: plain(*emit["cuda"]))[1]
+            row["viterbi"]["backtrace"] = _viterbi_backtrace_split(
+                emit["cuda"])
         rows.append(row)
         _log(f"phase 6: {json.dumps(row)}")
     return rows
@@ -2907,7 +3019,9 @@ def _scan_kernel_entries(info: dict, rng) -> list[dict]:
                 if kind == "posteriors" else [])),
             ms=row["ms"], plain_ms=row["plain_ms"], cpu_ms=row["cpu_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=None, shapes=[row] + hmm["edges"]))
+            library_ms=None, cycles_per_step=row["cycles_per_step"],
+            **({"chain_ms": row["chain_ms"]} if kind == "viterbi" else {}),
+            shapes=[row] + hmm["edges"]))
     return entries
 
 

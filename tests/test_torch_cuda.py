@@ -23,11 +23,14 @@ point) and 1025 to 4096 (a block
 a pair, the rows in shared memory or, at 4096, in a device scratch),
 warps that mix empty, full and short segments and N bases, and three
 error rates: fp32 scores bit-equal (tolerance 0).  The coverage
-HMM's kernels (csrc/coverage_hmm.cu) are held to theirs over S 3-5 and
-T 1, 2 and 4970 on ragged, tie-rich batches: labels equal; posteriors no
-further from a float64 forward-backward than 1e-5 or twice the CPU plain
-version's distance (float32 sums of thousands of windows round at
-|alpha| x 6e-8, and the card's exp and log round differently).
+HMM's kernels (csrc/coverage_hmm.cu) are held to theirs over S 3-5 at T
+1, 2, 4970 and the segment edges of their plans, on ragged, tie-rich
+batches of 9 contigs, and of 1 and 190; at S 2 and 8 on emissions built
+directly; with -inf transitions (stay = 1); and on contigs of 205,000
+windows (the Viterbi's backpointers in a device scratch): labels equal;
+posteriors no further from a float64 forward-backward than 1e-5 or twice
+the CPU plain version's distance (float32 sums of thousands of windows
+round at |alpha| x 6e-8, and the card's exp and log round differently).
 
 The k-mer kernels (csrc/kmer.cu: count, unique mask, vote) are held to
 their plain versions at k 6 and 12 on tests/torch_inputs.py's cases: a
@@ -516,33 +519,105 @@ def test_pairhmm_block_design_matches_plain(cuda, B, R, W):
     _check_viterbi_kernel(cuda, segs, lens, haps, 0.1, W)
 
 
+def _check_coverage_kernels(on_card, on_cpu, exact):
+    """Both coverage kernels on (emit, logA, logpi) against their plain
+    versions: `on_card` and `on_cpu` the inputs as each device built them.
+    The Viterbi labels equal the plain version's on the card and on the
+    CPU; the posteriors within 1e-5 or twice the CPU plain version's
+    distance of `exact`, a float64 forward-backward (T, B, S); one launch
+    each."""
+    T, B, S = on_cpu[0].shape
+    for fn in (flagger.coverage_viterbi, flagger.coverage_posteriors):
+        fn.launches = 0
+    labels = flagger.coverage_viterbi(*on_card).cpu()
+    assert labels.dtype == torch.int8 and labels.shape == (B, T)
+    assert torch.equal(labels, flagger._viterbi_plain(*on_card).cpu())
+    assert torch.equal(labels, flagger._viterbi_plain(*on_cpu))
+    got = flagger.coverage_posteriors(*on_card).cpu().numpy()
+    cpu = flagger._posteriors_plain(*on_cpu).numpy()
+    assert got.dtype == np.float32 and got.shape == (T, B, S)
+    cpu_err = float(np.abs(cpu - exact).max())
+    assert float(np.abs(got - exact).max()) <= max(1e-5, 2 * cpu_err)
+    assert flagger.coverage_viterbi.launches == 1
+    assert flagger.coverage_posteriors.launches == 1
+
+
+def _hmm_case(cuda, means, tau, cov, valid, stay=flagger.STAY):
+    """The emissions as qc builds them, on the card and on the CPU, and the
+    float64 posteriors: `_check_coverage_kernels`'s arguments."""
+    hmm = flagger.CoverageHMM(means=means, tau=tau, stay=stay)
+    return (hmm._emissions(cov, valid, torch.device(cuda)),
+            hmm._emissions(cov, valid, torch.device("cpu")),
+            flagger.posteriors_float64(hmm, cov, valid).transpose(1, 0, 2))
+
+
+# T at the plans' segment edges (qc/flagger.py::coverage_plan, viterbi_plan
+# at B = 9): 241 leaves a last segment of one window (both), 4913 one
+# window short of full, 4914 full and 4915 of one window (forward-backward),
+# 4927 one short and 4928 full (Viterbi)
+COVERAGE_T = [1, 2, 241, 4913, 4914, 4915, 4927, 4928, 4970]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 2, 4970])
+@pytest.mark.parametrize("T", COVERAGE_T)
 @pytest.mark.parametrize("n_states", [3, 4, 5])
 def test_coverage_kernels_match_plain(cuda, n_states, T):
     """Ragged, tie-rich batches (an all-padded row, two states of one
     mean): the Viterbi kernel's labels equal the plain version's on the
     card and on the CPU; the posteriors kernel within 1e-5 or twice the
     CPU's distance of a float64 forward-backward."""
-    means, tau, cov, valid = hmm_tie_case(
-        np.random.default_rng(n_states * 10 + T), n_states, 9, T)
-    hmm = flagger.CoverageHMM(means=means, tau=tau)
-    emit = {d: hmm._emissions(cov, valid, torch.device(d))
-            for d in (cuda, "cpu")}
-    for fn in (flagger.coverage_viterbi, flagger.coverage_posteriors):
-        fn.launches = 0
-    labels = flagger.coverage_viterbi(*emit[cuda]).cpu()
-    assert labels.dtype == torch.int8 and labels.shape == (9, T)
-    assert torch.equal(labels, flagger._viterbi_plain(*emit[cuda]).cpu())
-    assert torch.equal(labels, flagger._viterbi_plain(*emit["cpu"]))
-    exact = flagger.posteriors_float64(hmm, cov, valid).transpose(1, 0, 2)
-    got = flagger.coverage_posteriors(*emit[cuda]).cpu().numpy()
-    cpu = flagger._posteriors_plain(*emit["cpu"]).numpy()
-    assert got.dtype == np.float32 and got.shape == (T, 9, n_states)
-    cpu_err = float(np.abs(cpu - exact).max())
-    assert float(np.abs(got - exact).max()) <= max(1e-5, 2 * cpu_err)
-    assert flagger.coverage_viterbi.launches == 1
-    assert flagger.coverage_posteriors.launches == 1
+    _check_coverage_kernels(*_hmm_case(cuda, *hmm_tie_case(
+        np.random.default_rng(n_states * 10 + T), n_states, 9, T)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 190])
+def test_coverage_kernels_batch_sizes(cuda, B):
+    """One contig, and the chromosome-scale batch's 190 (two contigs a CTA
+    in the forward-backward, 24 CTAs of 8 in the Viterbi)."""
+    _check_coverage_kernels(*_hmm_case(cuda, *hmm_tie_case(
+        np.random.default_rng(B), 4, B, 4970)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 75, 4915])
+@pytest.mark.parametrize("S", [2, 8])
+def test_coverage_kernels_template_ends(cuda, S, T):
+    """The smallest and largest templates (S 2 and 8: 1 and 3 bits a
+    backpointer, a byte and a word a window), emissions built directly
+    with a padded tail, random transitions."""
+    rng = np.random.default_rng(S * 100 + T)
+    emit = (rng.standard_normal((T, 9, S)) * 4).astype(np.float32)
+    emit[T // 2:, 1] = 0
+    logA = np.log(rng.dirichlet(np.ones(S), S)).astype(np.float32)
+    logpi = np.log(np.full(S, 1.0 / S)).astype(np.float32)
+    on_cpu = [torch.from_numpy(x) for x in (emit, logA, logpi)]
+    _check_coverage_kernels([x.to(cuda) for x in on_cpu], on_cpu,
+                            flagger.forward_backward_float64(emit, logA,
+                                                             logpi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [160, 4915])
+def test_coverage_kernels_inf_transitions(cuda, T):
+    """logA with -inf entries (CoverageHMM(stay=1.0)): no path changes
+    state.  A contig at haploid coverage, then at twice it (the collapsed
+    state wins every window), beside ragged rows and an all-padded one."""
+    means, tau, cov, valid = hmm_tie_case(np.random.default_rng(T), 4, 6, T)
+    means[3] = 2 * means[2]
+    cov[0] = np.where(np.arange(T) < 60, means[2], means[3])
+    _check_coverage_kernels(*_hmm_case(cuda, means, tau, cov, valid, 1.0))
+
+
+@pytest.mark.cuda
+def test_coverage_kernels_long_contigs(cuda):
+    """Contigs of 205,000 windows: the Viterbi's backpointers pass its
+    shared memory and go to a device scratch; the forward-backward takes
+    segments of 1602 windows."""
+    T = 205_000
+    assert flagger.viterbi_plan(3, T, 4).scratch > 0
+    _check_coverage_kernels(*_hmm_case(cuda, *hmm_tie_case(
+        np.random.default_rng(5), 4, 3, T)))
 
 
 @pytest.mark.cuda

@@ -68,13 +68,13 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
             [ci] * 2 + [vp] * 3 + [ci] * 3 + [cf] * 8 + [vp] * 3
         lib.pairhmm_viterbi_launch.restype = ci
     elif name == "coverage_hmm":
-        lib.coverage_viterbi_scratch_bytes.argtypes = [ci] * 3
-        lib.coverage_viterbi_scratch_bytes.restype = ctypes.c_longlong
-        lib.coverage_viterbi_launch.argtypes = [vp] * 3 + [ci] * 3 + [vp] * 3
+        lib.coverage_viterbi_launch.argtypes = [vp] * 3 + [ci] * 6 + [vp] * 3
         lib.coverage_viterbi_launch.restype = ci
         lib.coverage_posteriors_launch.argtypes = \
-            [vp] * 3 + [ci] * 3 + [vp] * 2
+            [vp] * 3 + [ci] * 6 + [vp] * 2
         lib.coverage_posteriors_launch.restype = ci
+        lib.viterbi_step_chase.argtypes = [vp, ci, ci, vp, vp]
+        lib.viterbi_step_chase.restype = ci
     elif name == "kmer":
         cl = ctypes.c_longlong
         lib.kmer_count_launch.argtypes = [vp, vp] + [ci] * 3 + [vp, vp]

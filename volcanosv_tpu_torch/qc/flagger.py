@@ -13,14 +13,20 @@ The Viterbi and forward-backward recursions run on the caller's device
 through `coverage_viterbi` and `coverage_posteriors`: on the CPU their plain
 versions (`_viterbi_plain`, `_posteriors_plain`: torch ops in a loop over
 the T windows carrying the (B, S) state of a padded batch of B contigs), on
-the card the hand-written kernels of `csrc/coverage_hmm.cu` (a thread per
-contig walking all T windows), or they raise.  They compute in float32, as
-the JAX package does (its x64 mode is off), with the same add order, so
-that the state labels are the same; the posteriors' logsumexp is another
-implementation's and agrees within a tolerance.
+the card the hand-written kernels of `csrc/coverage_hmm.cu`, or they raise.
+Both kernels split a contig's chain of T windows into segments
+(`viterbi_plan`, `coverage_plan`): the Viterbi walks forward one thread a
+contig, bit for bit the plain version's adds, and splits only its
+backtrace (each segment's map of states, then its own windows); the
+forward-backward forms each segment's transfer matrix in the log semiring
+in parallel, walks the segment boundaries, then each segment's windows.
+They compute in float32, as the JAX package does (its x64 mode is off): the
+state labels are the same; the posteriors agree within a tolerance (the
+kernel's sums are another order, and are held to `posteriors_float64`).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -198,8 +204,72 @@ def _posteriors_plain(emit: torch.Tensor, logA: torch.Tensor,
     return torch.softmax(alphas + betas, dim=-1)
 
 
-# the kernels' most states (csrc/coverage_hmm.cu)
+# the kernels' most states and most threads a CTA (csrc/coverage_hmm.cu)
 MAX_STATES = 8
+COVERAGE_THREADS = 256
+# the forward-backward's most segments a contig
+COVERAGE_SEGS = 128
+# the H100's SMs: the forward-backward packs contigs into a CTA only where
+# the batch outnumbers them
+COVERAGE_SMS = 132
+# the Viterbi: contigs a CTA (one forward walker each), the shared memory
+# their backpointers may take, the backtrace's shortest segment
+VITERBI_CONTIGS = 8
+VITERBI_SMEM = 200 * 1024
+VITERBI_MIN_SEG = 16
+
+
+@dataclass(frozen=True)
+class CoveragePlan:
+    """A coverage kernel's split of a (T, B, S) batch: `seg` windows a
+    segment, `segs` segments a contig, `contigs` a CTA, `threads` and
+    `ctas`, `smem` bytes of shared memory a CTA, `scratch` bytes of device
+    memory (the Viterbi's backpointers where shared memory cannot hold
+    them)."""
+    seg: int
+    segs: int
+    contigs: int
+    threads: int
+    ctas: int
+    smem: int
+    scratch: int = 0
+
+
+def coverage_plan(B: int, T: int, S: int) -> CoveragePlan:
+    """The forward-backward kernel's split: a thread a segment, as many as
+    COVERAGE_SEGS segments a contig (a contig's chain is its segment's
+    windows three times, to form the segment's matrix and to walk it both
+    ways, then the P boundaries; more segments shorten the first and
+    lengthen the second), two contigs a CTA where they fit and B
+    outnumbers the SMs.  Shared memory: each segment's S x S matrix and two
+    S-vectors."""
+    L = -(-T // COVERAGE_SEGS)
+    P = -(-T // L)
+    C = max(1, min(COVERAGE_THREADS // P, -(-B // COVERAGE_SMS), B))
+    return CoveragePlan(seg=L, segs=P, contigs=C, threads=C * P,
+                        ctas=-(-B // C), smem=C * P * (S * S + 2 * S) * 4)
+
+
+def viterbi_plan(B: int, T: int, S: int) -> CoveragePlan:
+    """The Viterbi kernel's split: VITERBI_CONTIGS contigs a CTA (fewer
+    where their backpointers, T words of ceil(log2 S) bits a state a
+    contig, would pass VITERBI_SMEM; past that for one contig they go to a
+    device scratch), walked forward by a thread a contig, the backtrace
+    over as many segments as the CTA's threads allow, each at least
+    VITERBI_MIN_SEG windows.  Shared memory: the segments' maps and end
+    states (5 bytes each), then the backpointers."""
+    word = 1 if S <= 4 else 4
+    fit = VITERBI_SMEM // (T * word)
+    C = max(1, min(VITERBI_CONTIGS, B, fit or VITERBI_CONTIGS))
+    Q = max(1, min(COVERAGE_THREADS // C, -(-T // VITERBI_MIN_SEG)))
+    L = -(-T // Q)
+    Q = -(-T // L)
+    ctas = -(-B // C)
+    head = -(-5 * Q * C // 16) * 16
+    bp = ctas * C * T * word
+    return CoveragePlan(seg=L, segs=Q, contigs=C, threads=C * Q, ctas=ctas,
+                        smem=head + (T * C * word if fit else 0),
+                        scratch=0 if fit else bp)
 
 
 def _check_hmm_inputs(what: str, emit: torch.Tensor, logA: torch.Tensor,
@@ -241,13 +311,13 @@ def coverage_viterbi(emit: torch.Tensor, logA: torch.Tensor,
     labels = torch.empty((B, T), dtype=torch.int8, device=emit.device)
     if B == 0:
         return labels
-    lib = cuda_build.lib("coverage_hmm")
-    n = lib.coverage_viterbi_scratch_bytes(B, T, S)
-    scratch = torch.empty(n, dtype=torch.uint8, device=emit.device) \
-        if n else None
+    plan = viterbi_plan(B, T, S)
+    scratch = torch.empty(plan.scratch, dtype=torch.uint8,
+                          device=emit.device) if plan.scratch else None
     with torch.cuda.device(emit.device):     # the launch goes to emit's card
-        rc = lib.coverage_viterbi_launch(
+        rc = cuda_build.lib("coverage_hmm").coverage_viterbi_launch(
             emit.data_ptr(), logA.data_ptr(), logpi.data_ptr(), B, T, S,
+            plan.seg, plan.segs, plan.contigs,
             scratch.data_ptr() if scratch is not None else None,
             labels.data_ptr(),
             torch.cuda.current_stream(emit.device).cuda_stream)
@@ -279,10 +349,11 @@ def coverage_posteriors(emit: torch.Tensor, logA: torch.Tensor,
     out = torch.empty((T, B, S), dtype=torch.float32, device=emit.device)
     if B == 0:
         return out
+    plan = coverage_plan(B, T, S)
     with torch.cuda.device(emit.device):     # the launch goes to emit's card
         rc = cuda_build.lib("coverage_hmm").coverage_posteriors_launch(
             emit.data_ptr(), logA.data_ptr(), logpi.data_ptr(), B, T, S,
-            out.data_ptr(),
+            plan.seg, plan.segs, plan.contigs, out.data_ptr(),
             torch.cuda.current_stream(emit.device).cuda_stream)
     cuda_build.check(rc, "coverage_posteriors launch", "coverage_hmm")
     coverage_posteriors.launches += 1
@@ -299,6 +370,26 @@ def _log_sum_exp(x: np.ndarray, axis: int) -> np.ndarray:
             ).squeeze(axis)
 
 
+def forward_backward_float64(emit: np.ndarray, logA: np.ndarray,
+                             logpi: np.ndarray) -> np.ndarray:
+    """The log-space forward-backward in float64 on the host: emissions
+    (T, B, S), log transitions (S, S), log initial (S,) → posteriors
+    (T, B, S) float64."""
+    emit = np.asarray(emit, np.float64)
+    T = emit.shape[0]
+    alpha = np.zeros(emit.shape)
+    beta = np.zeros(emit.shape)
+    alpha[0] = np.asarray(logpi, np.float64) + emit[0]
+    for t in range(1, T):
+        alpha[t] = _log_sum_exp(alpha[t - 1][:, :, None] + logA, 1) + emit[t]
+    for t in range(T - 2, -1, -1):
+        beta[t] = _log_sum_exp(
+            logA + (emit[t + 1] + beta[t + 1])[:, None, :], 2)
+    lp = alpha + beta
+    p = np.exp(lp - lp.max(-1, keepdims=True))
+    return p / p.sum(-1, keepdims=True)
+
+
 def posteriors_float64(hmm, cov: np.ndarray, valid: np.ndarray) -> np.ndarray:
     """CoverageHMM.posteriors' forward-backward in float64 on the host: the
     yardstick of the float32 posteriors' rounding.  `hmm` needs only
@@ -308,21 +399,12 @@ def posteriors_float64(hmm, cov: np.ndarray, valid: np.ndarray) -> np.ndarray:
     emit = (np.asarray(cov, np.float64)[..., None] * np.log(lam) - lam) \
         / hmm.tau
     emit = np.where(np.asarray(valid, bool)[..., None], emit, 0.0)
-    logA = np.log(np.where(np.eye(S, dtype=bool), hmm.stay,
-                           (1 - hmm.stay) / (S - 1)))
-    B, T = emit.shape[:2]
-    alpha = np.zeros((B, T, S))
-    beta = np.zeros((B, T, S))
-    alpha[:, 0] = np.log(1.0 / S) + emit[:, 0]
-    for t in range(1, T):
-        alpha[:, t] = _log_sum_exp(alpha[:, t - 1, :, None] + logA, 1) \
-            + emit[:, t]
-    for t in range(T - 2, -1, -1):
-        beta[:, t] = _log_sum_exp(
-            logA + (emit[:, t + 1] + beta[:, t + 1])[:, None, :], 2)
-    lp = alpha + beta
-    p = np.exp(lp - lp.max(-1, keepdims=True))
-    return p / p.sum(-1, keepdims=True)
+    with np.errstate(divide="ignore"):          # stay = 1: log 0 = -inf
+        logA = np.log(np.where(np.eye(S, dtype=bool), hmm.stay,
+                               (1 - hmm.stay) / (S - 1)))
+    return forward_backward_float64(emit.transpose(1, 0, 2), logA,
+                                    np.full(S, np.log(1.0 / S))
+                                    ).transpose(1, 0, 2)
 
 
 @dataclass
