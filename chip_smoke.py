@@ -211,6 +211,35 @@ Phase 8  `run --device cuda -d CLR` and `-d ONT` on the recipe of
          timed beside its bound; after all phases, the DP and the walk at
          each path's most launched shape and at the largest launch of each
          (mode, design, W) that no earlier row holds.
+Phase 9  `run` at chromosome scale through tools/scale_run_torch.py (the
+         port's twin of tools/scale_run.py) with `--device cuda`, at the
+         arguments of tests/data/scale_run_sha256.json: one 5 Mb
+         chromosome, 30 SVs, HiFi reads at 24x, 9 kb.  The sim's ref.fa,
+         reads.fastq and truth.vcf and the run's six outputs must have the
+         pinned sha256 and sizes, made from the JAX package's
+         tools/scale_run.py on the CPU (tools/pin_scale_run.py; a mismatch
+         prints the merged VCF's diff against
+         tests/data/scale_run_variants.vcf), and SV recall, precision and
+         GT through the port's eval on the card must reach 0.95.  The
+         stage table, peak RSS, peak device memory, the k-mer tables the
+         partition built against its cap and every kernel's launches by
+         shape are printed (the MEC's with `mec_plan`'s design, and
+         whether any launch went past one CTA a restart); every kernel of
+         `run` must have launched.  Then, untraced, the pair-HMM kernel at
+         the run's fullest bucket, the MEC kernel at its largest
+         observation set (every design in turns) and the three k-mer
+         kernels at its largest chunk, each against its plain version and
+         timed beside its bound; after all phases the DP and the walk at
+         the run's most launched shapes and at each (mode, design, W) no
+         earlier row holds.  `--scale MB` runs this phase alone at MB Mb
+         (the pin's recipe at another length, held to the pin at its own
+         length only), then the DP and the walk at the largest launch of
+         every (mode, design, W) the run made.
+
+The CPU sides of phase 4b's three `asm` checks, of phase 5b's `run` and
+of phase 6's `qc` run in processes of their own (two torch threads each)
+while the card works; each phase joins its own, and any left running when
+a phase raises is killed at exit.  Each phase's seconds are printed.
 
 Any failure raises.  On success the last four lines of standard
 output are the phases' summary (launches by shape, stage times, eval), the
@@ -221,12 +250,16 @@ check made at that shape after the paths ran; `pairhmm_viterbi`'s
 launches are the golden `run`'s, `coverage_viterbi`'s and
 `coverage_posteriors`' those of `qc` and `asm --sd`, the k-mer and MEC
 kernels' the golden `run`'s, timed at phase 4's inputs, and
-canonical_hashes', on no path, at 2^21 hashes and k 12), and the
+canonical_hashes', on no path, at 2^21 hashes and k 12; each wrapper's
+entry adds its launches on the CLR, ONT and scale runs as
+`launches_run_clr`, `launches_run_ont` and `launches_scale`), and the
 `{"ok": true, ...}` line.
 """
 from __future__ import annotations
 
 import argparse
+import atexit
+import contextlib
 import json
 import os
 import shutil
@@ -280,27 +313,25 @@ WALK_OPS_PER_STEP = 8
 EXPECTED_LAUNCHES = {"banded_dp": 17, "tb_walk": 15}
 
 
+def _scale_tool():
+    """tools/scale_run_torch.py, the port's twin of tools/scale_run.py:
+    phase 9 runs it, and its registry of the kernel wrappers is this
+    script's."""
+    tools = os.path.join(REPO, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import scale_run_torch
+    return scale_run_torch
+
+
 def _wrappers() -> dict:
     """Every kernel wrapper of the port by its kernels-line name."""
-    from volcanosv_tpu_torch.ops import banded_align as ba
-    from volcanosv_tpu_torch.ops import kmer
-    from volcanosv_tpu_torch.phasing import phase, realign
-    from volcanosv_tpu_torch.qc import flagger
-    return dict(banded_dp=ba.banded_dp, tb_walk=ba.tb_walk,
-                pairhmm_viterbi=realign._viterbi_batch,
-                coverage_viterbi=flagger.coverage_viterbi,
-                coverage_posteriors=flagger.coverage_posteriors,
-                kmer_count=kmer.kmer_count_into,
-                unique_mask=kmer.unique_mask, kmer_vote=kmer.kmer_vote,
-                mec_phase=phase._mec_phase,
-                canonical_hashes=kmer.canonical_hashes)
+    return _scale_tool().wrappers()
 
 
 def _reset_counts() -> None:
     """Every wrapper's launch count to 0 and its shapes emptied."""
-    for fn in _wrappers().values():
-        fn.launches = 0
-        fn.shapes = []
+    _scale_tool().reset_counts()
 
 
 def _counts() -> dict:
@@ -1528,19 +1559,27 @@ def _equal_tensors(got, want) -> bool:
                for g, w in zip(got, want))
 
 
-def _asm_cuda_vs_cpu(d: str, dtype: str, err: float,
-                     length: int = 80_000) -> dict:
-    """`asm -d dtype` on cuda and on cpu on the pipeline test's recipe (80
-    kb, 24x, 7 kb reads, seed 21; `length` cuts the chromosome) with
-    substitutions at `err` and indels at `err / 2`: the four outputs must
-    be byte-identical.  Returns the times, the stage times, the output
-    sizes, the WATCHED calls and the kernels' launches on the card."""
+# the outputs of `asm` that its cuda and cpu runs must write alike
+ASM_OUT = ("final_contigs.fa", "phased_snps.vcf",
+           os.path.join("checkpoints", "read_hp_chr1.tsv"), "phased.bam")
+# runs the port's CLI in a process of its own and prints its wall seconds
+CLI_TIMED = ("import sys, time\n"
+             "t0 = time.perf_counter()\n"
+             "from volcanosv_tpu_torch.cli import main\n"
+             "rc = main(sys.argv[1:])\n"
+             "print(time.perf_counter() - t0)\n"
+             "sys.exit(rc)\n")
+
+
+def _write_pipeline_case(d: str, err: float, length: int) -> None:
+    """The pipeline test's recipe (tests/test_pipeline_e2e.py: 24x, 7 kb
+    reads, seed 21; `length` cuts the chromosome) with substitutions at
+    `err` and indels at `err / 2`, written under d."""
     import numpy as np
 
-    from volcanosv_tpu_torch import cli, sim
+    from volcanosv_tpu_torch import sim
     from volcanosv_tpu_torch.io.fasta import write_fasta
     from volcanosv_tpu_torch.io.fastq import write_fastq
-    from volcanosv_tpu_torch.utils.logging import STAGE_TIMES
     os.makedirs(d, exist_ok=True)
     rng = np.random.default_rng(21)        # tests/test_pipeline_e2e.py
     ref = sim.random_genome(rng, length)
@@ -1554,40 +1593,93 @@ def _asm_cuda_vs_cpu(d: str, dtype: str, err: float,
     write_fasta(os.path.join(d, "ref.fa"), ref)
     write_fastq(os.path.join(d, "reads.fastq"),
                 ((n, s, None) for n, s, *_ in reads))
-    outs, secs, calls, stages = {}, {}, {}, {}
-    for device in ("cuda", "cpu"):
-        out = os.path.join(d, f"out_{device}")
-        undo = _watch(calls, {}) if device == "cuda" else (lambda: None)
-        STAGE_TIMES.clear()
-        _reset_counts()
-        t0 = time.perf_counter()
-        try:
-            rc = cli.main(_asm_args(d, out, device) + ["-d", dtype])
-        finally:
-            undo()
-        if device == "cuda":
-            launches = _counts()
-        if rc != 0:
-            raise AssertionError(f"asm -d {dtype} --device {device} failed")
-        secs[device] = time.perf_counter() - t0
-        stages[device] = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
-        outs[device] = {}
-        for name in ("final_contigs.fa", "phased_snps.vcf",
-                     os.path.join("checkpoints", "read_hp_chr1.tsv"),
-                     "phased.bam"):
-            with open(os.path.join(out, name), "rb") as fh:
-                outs[device][name] = fh.read()
-    for name, want in outs["cpu"].items():
-        if outs["cuda"][name] != want or not want:
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+# the processes this run started for the CPU sides of its cuda = cpu
+# checks; killed at exit where a phase raised before joining them
+_CPU_SIDES: list = []
+
+
+@atexit.register
+def _kill_cpu_sides() -> None:
+    for proc in _CPU_SIDES:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _start_cpu_cli(args: list[str], log: str):
+    """The port's CLI with `args` (a `--device cpu` command) in a process
+    of its own on two torch threads, its log in `log`: the CPU side of a
+    cuda = cpu check, run while the card works; `_join_cpu_cli` joins it."""
+    os.makedirs(os.path.dirname(log), exist_ok=True)
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CLI_TIMED] + args, cwd=REPO,
+            stdout=subprocess.PIPE, stderr=fh, text=True,
+            env=dict(os.environ, OMP_NUM_THREADS="2"))
+    proc.log = log
+    _CPU_SIDES.append(proc)
+    return proc
+
+
+def _join_cpu_cli(proc, what: str) -> float:
+    """Waits for a `_start_cpu_cli` process; raises where it failed, else
+    returns its command's wall seconds."""
+    stdout, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} --device cpu failed (log {proc.log})")
+    return float(stdout.strip().splitlines()[-1])
+
+
+def _asm_on_card(d: str, dtype: str, err: float, length: int) -> dict:
+    """`asm -d dtype --device cuda` on d's case in this process: the
+    times, the stage times, the WATCHED calls and the kernels' launches."""
+    from volcanosv_tpu_torch import cli
+    from volcanosv_tpu_torch.utils.logging import STAGE_TIMES
+    calls = {}
+    undo = _watch(calls, {})
+    STAGE_TIMES.clear()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(_asm_args(d, os.path.join(d, "out_cuda"), "cuda")
+                      + ["-d", dtype])
+    finally:
+        undo()
+    if rc != 0:
+        raise AssertionError(f"asm -d {dtype} --device cuda failed")
+    return dict(dtype=dtype, err=err, length=length,
+                asm_s={"cuda": time.perf_counter() - t0},
+                stages={"cuda": {k: round(v[0], 3)
+                                 for k, v in STAGE_TIMES.items()}},
+                device_function_calls=calls, kernel_launches=_counts())
+
+
+def _join_cpu_asm(d: str, info: dict, cpu_proc) -> None:
+    """The CPU side's process (`_start_cpu_cli`) joined: its four outputs
+    must be the card's (`_asm_on_card`) bytes; its time, stage times and
+    the output sizes go into `info`."""
+    dtype = info["dtype"]
+    info["asm_s"]["cpu"] = _join_cpu_cli(cpu_proc, f"asm -d {dtype}")
+    with open(os.path.join(d, "out_cpu", "stage_times.json")) as fh:
+        info["stages"]["cpu"] = {k: v["total_s"]
+                                 for k, v in json.load(fh).items()}
+    info["bytes"] = {}
+    for name in ASM_OUT:
+        got, want = (_read(os.path.join(d, f"out_{dev}", name))
+                     for dev in ("cuda", "cpu"))
+        if got != want or not want:
             raise AssertionError(f"phase 4b: asm -d {dtype} {name} differs "
                                  "between cuda and cpu")
-    info = dict(dtype=dtype, err=err, length=length, asm_s=secs,
-                stages=stages,
-                bytes={n: len(b) for n, b in outs["cpu"].items()},
-                device_function_calls=calls, kernel_launches=launches)
+        info["bytes"][name] = len(want)
     _log(f"phase 4b: asm outputs byte-identical on cuda and cpu "
          f"{json.dumps(info)}")
-    return info
 
 
 def _time_turns(fns: dict, runs: int = 10) -> dict:
@@ -2014,9 +2106,8 @@ def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
     against its plain version (`_viterbi_rows`, `_viterbi_wide_rows`), the
     MEC kernel (`_mec_rows`), canonical_hashes' kernel (`_canonical_rows`)
     and the k-mer kernels (`_kmer_rows`, `_kmer_edges`) against theirs,
-    each timed beside its bound."""
-    info = dict(hifi=_asm_cuda_vs_cpu(os.path.join(WORK, "asm_cuda_vs_cpu"),
-                                      "Hifi", 0.001))
+    each timed beside its bound.  The three `asm` runs' CPU sides run in
+    processes of their own from the phase's start, joined at its end."""
     # CLR (13.5% total error) realigns every candidate site through the
     # pair-HMM (PhasingConfig.realign_all): the chain pileup -> Viterbi ->
     # allele call -> MEC -> partition -> assembly, card against CPU
@@ -2024,11 +2115,19 @@ def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
     # (map-ont) and signature rules.  Both at 40 kb: the CPU side's polish
     # takes minutes (212 s for ONT at 80 kb), and phase 8 runs both types
     # at 200 kb on the card
-    for dtype, err in (("CLR", 0.09), ("ONT", 0.06)):
-        key = dtype.lower()
-        info[key] = _asm_cuda_vs_cpu(
-            os.path.join(WORK, f"asm_{key}_cuda_vs_cpu"), dtype, err,
-            NOISY_ASM_LENGTH)
+    cases = (("hifi", "Hifi", 0.001, 80_000, "asm_cuda_vs_cpu"),
+             ("clr", "CLR", 0.09, NOISY_ASM_LENGTH, "asm_clr_cuda_vs_cpu"),
+             ("ont", "ONT", 0.06, NOISY_ASM_LENGTH, "asm_ont_cuda_vs_cpu"))
+    started = {}
+    for key, dtype, err, length, sub in cases:
+        d = os.path.join(WORK, sub)
+        _write_pipeline_case(d, err, length)
+        started[key] = _start_cpu_cli(
+            _asm_args(d, os.path.join(d, "out_cpu"), "cpu")
+            + ["-d", dtype, "--profile"], os.path.join(d, "cpu.log"))
+    info = {key: _asm_on_card(os.path.join(WORK, sub), dtype, err, length)
+            for key, dtype, err, length, sub in cases}
+    for key, dtype, *_ in cases[1:]:
         if info[key]["kernel_launches"]["pairhmm_viterbi"] <= 0:
             raise AssertionError(f"phase 4b: asm -d {dtype} launched no "
                                  "pair-HMM kernel")
@@ -2038,6 +2137,8 @@ def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
     info["kmer"] = _kmer_rows(kept)
     info["kmer_edges"] = _kmer_edges()
     info["pairhmm_viterbi"] = vrows
+    for key, _dtype, _err, _length, sub in cases:
+        _join_cpu_asm(os.path.join(WORK, sub), info[key], started[key])
     return info
 
 
@@ -2201,24 +2302,28 @@ def _golden_gates(sim_dir: str, out: str, device: str = "cuda") -> dict:
     return gates
 
 
-def _check_pin(pin: dict, sim_args: list, sim_dir: str, out: str,
-               variants: str, tag: str) -> dict:
-    """A sim's inputs and the card's six `run` outputs against the JAX
-    package's pinned sha256 and sizes (`pin`: its sim_args, sim and run
-    digests); on a mismatch the merged VCF's diff against the pinned copy
-    `variants` is printed, then it raises."""
-    import difflib
+def _digest(path: str) -> dict:
+    """A file's sha256 and size, as the pins hold them."""
     import hashlib
-    if pin["sim_args"] != sim_args:
+    data = _read(path)
+    return {"sha256": hashlib.sha256(data).hexdigest(), "bytes": len(data)}
+
+
+def _check_pin(pin: dict, sim_args: list, sim_dir: str, out: str,
+               variants: str, tag: str, args_key: str = "sim_args") -> dict:
+    """A sim's inputs and the card's six `run` outputs against the JAX
+    package's pinned sha256 and sizes (`pin`: the arguments that made the
+    sim under `args_key`, sim and run digests); on a mismatch the merged
+    VCF's diff against the pinned copy `variants` is printed, then it
+    raises."""
+    import difflib
+    if pin[args_key] != sim_args:
         raise AssertionError(f"{tag}: the pin's sim arguments are not "
                              f"{sim_args}")
     bad = []
     for group, d in (("sim", sim_dir), ("run", out)):
         for name, want in pin[group].items():
-            with open(os.path.join(d, name), "rb") as fh:
-                data = fh.read()
-            got = {"sha256": hashlib.sha256(data).hexdigest(),
-                   "bytes": len(data)}
+            got = _digest(os.path.join(d, name))
             if got != want:
                 bad.append(dict(file=name, got=got, want=want))
     if bad:
@@ -2369,27 +2474,45 @@ def phase5_run_golden(profile: bool) -> dict:
                 gates=gates, profile=profile_info)
 
 
-def phase5b_run_cuda_vs_cpu() -> dict:
-    """`run` with --device cuda and --device cpu on the 2 x 50 kb recipe:
-    the six outputs and phased.bam byte-identical.  Nothing is caught."""
+def start_cpu_sides_5b_6() -> dict:
+    """The CPU sides of phase 5b's `run` (its sim written first) and of
+    phase 6's `qc` (on phase 4's outputs), started (`_start_cpu_cli`) to
+    run beside phase 5."""
     from volcanosv_tpu_torch import cli
-    from volcanosv_tpu_torch.utils.logging import STAGE_TIMES
     d = os.path.join(WORK, "run_cuda_vs_cpu")
     if cli.main(["sim", "-o", os.path.join(d, "sim")] + RUN_SIM) != 0:
         raise AssertionError("phase 5b: sim failed")
-    outs, secs, stages = {}, {}, {}
+    qc_out = os.path.join(WORK, "qc", "cpu")
+    return {
+        "run": _start_cpu_cli(
+            _run_args(os.path.join(d, "sim"), os.path.join(d, "out_cpu"),
+                      "cpu") + ["--profile"], os.path.join(d, "cpu.log")),
+        "qc": _start_cpu_cli(_qc_args() + ["-o", qc_out, "--device", "cpu"],
+                             os.path.join(WORK, "qc", "cpu.log"))}
+
+
+def phase5b_run_cuda_vs_cpu(cpu_proc) -> dict:
+    """`run` with --device cuda on the 2 x 50 kb recipe, and the same with
+    --device cpu (`cpu_proc`, started by `start_cpu_sides_5b_6`): the six
+    outputs and phased.bam byte-identical.  Nothing is caught."""
+    from volcanosv_tpu_torch import cli
+    from volcanosv_tpu_torch.utils.logging import STAGE_TIMES
+    d = os.path.join(WORK, "run_cuda_vs_cpu")
+    STAGE_TIMES.clear()
+    t0 = time.perf_counter()
+    if cli.main(_run_args(os.path.join(d, "sim"), os.path.join(d, "out_cuda"),
+                          "cuda")) != 0:
+        raise AssertionError("phase 5b: run --device cuda failed")
+    secs = {"cuda": time.perf_counter() - t0}
+    stages = {"cuda": {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}}
+    secs["cpu"] = _join_cpu_cli(cpu_proc, "phase 5b: run")
+    with open(os.path.join(d, "out_cpu", "stage_times.json")) as fh:
+        stages["cpu"] = {k: v["total_s"] for k, v in json.load(fh).items()}
+    outs = {}
     for device in ("cuda", "cpu"):
-        out = os.path.join(d, f"out_{device}")
-        STAGE_TIMES.clear()
-        t0 = time.perf_counter()
-        if cli.main(_run_args(os.path.join(d, "sim"), out, device)) != 0:
-            raise AssertionError(f"phase 5b: run --device {device} failed")
-        secs[device] = time.perf_counter() - t0
-        stages[device] = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
         outs[device] = {}
         for name in RUN_OUT + ["phased.bam"]:
-            with open(os.path.join(out, name), "rb") as fh:
-                outs[device][name] = fh.read()
+            outs[device][name] = _read(os.path.join(d, f"out_{device}", name))
     for name, want in outs["cpu"].items():
         if outs["cuda"][name] != want or not want:
             raise AssertionError(f"phase 5b: {name} differs between cuda "
@@ -2592,21 +2715,27 @@ def _sd_case():
     return contigs, groups, roc
 
 
-def _cli_cuda_vs_cpu(args, out_dir: str, names: list[str], tag: str):
+def _cli_cuda_vs_cpu(args, out_dir: str, names: list[str], tag: str,
+                     cpu_proc=None):
     """One CLI command with --device cuda and --device cpu into
-    out_dir/{cuda,cpu}: the named outputs byte-identical.  Returns the
-    seconds on each, the card's launches and their shapes (`_count_kernels`)
-    and the output sizes."""
+    out_dir/{cuda,cpu} (the CPU side: `cpu_proc` where one was started
+    with `_start_cpu_cli`): the named outputs byte-identical.  Returns the
+    seconds on each, the card's launches and their shapes
+    (`_count_kernels`) and the output sizes."""
     from volcanosv_tpu_torch import cli
     secs, outs, launches, shapes = {}, {}, None, None
     for device in ("cuda", "cpu"):
         out = os.path.join(out_dir, device)
-        t0 = time.perf_counter()
-        rc, counts, launched = _count_kernels(
-            lambda: cli.main(args + ["-o", out, "--device", device]))
-        secs[device] = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"phase 6: {tag} --device {device} failed")
+        if device == "cpu" and cpu_proc is not None:
+            secs[device] = _join_cpu_cli(cpu_proc, f"phase 6: {tag}")
+        else:
+            t0 = time.perf_counter()
+            rc, counts, launched = _count_kernels(
+                lambda: cli.main(args + ["-o", out, "--device", device]))
+            secs[device] = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"phase 6: {tag} --device {device} "
+                                     "failed")
         if device == "cuda":
             launches, shapes = counts, launched
         outs[device] = {}
@@ -2844,17 +2973,22 @@ def _sd_recover_cuda_vs_cpu() -> dict:
     return info
 
 
-def phase6_qc_sd(seed: int) -> dict:
-    """QC and SD recovery on the card: `qc` on phase 4's contigs and reads,
-    the coverage HMM at chromosome scale, `sd_recover` and `asm --sd` on
-    phase 4b's HiFi case, each on cuda against cpu."""
-    info = {}
+def _qc_args() -> list[str]:
+    """`qc` on phase 4's contigs and reads."""
     d4 = os.path.join(WORK, "asm")
-    info["qc"] = _cli_cuda_vs_cpu(
-        ["qc", "--ref", os.path.join(d4, "ref.fa"),
-         "--contig", os.path.join(d4, "out", "final_contigs.fa"),
-         "--fastq", os.path.join(d4, "reads.fastq")],
-        os.path.join(WORK, "qc"), ["flagger_blocks.bed"], "qc")
+    return ["qc", "--ref", os.path.join(d4, "ref.fa"),
+            "--contig", os.path.join(d4, "out", "final_contigs.fa"),
+            "--fastq", os.path.join(d4, "reads.fastq")]
+
+
+def phase6_qc_sd(seed: int, qc_cpu) -> dict:
+    """QC and SD recovery on the card: `qc` on phase 4's contigs and reads
+    (its CPU side `qc_cpu`, started by `start_cpu_sides_5b_6`), the
+    coverage HMM at chromosome scale, `sd_recover` and `asm --sd` on phase
+    4b's HiFi case, each on cuda against cpu."""
+    info = {}
+    info["qc"] = _cli_cuda_vs_cpu(_qc_args(), os.path.join(WORK, "qc"),
+                                  ["flagger_blocks.bed"], "qc", qc_cpu)
     for name in ("banded_dp", "coverage_viterbi", "coverage_posteriors"):
         if info["qc"]["launches"][name] <= 0:
             raise AssertionError(f"phase 6: qc launched no {name}")
@@ -3291,22 +3425,183 @@ def _mec_kernel_entries(info: dict) -> list[dict]:
     ]
 
 
-def _add_noisy_runs(kernels: list, noisy: dict) -> None:
-    """Into each wrapper's kernels-line entry: its launches on the CLR and
-    ONT runs (phase 8) and, for the pair-HMM, MEC and k-mer kernels, their
-    rows at those runs' inputs (`max_abs_err` taken over them too)."""
+def _add_run_rows(kernels: list, run: dict, suffix: str) -> None:
+    """Into each wrapper's kernels-line entry: its launches on `run` (a
+    `run` of phase 8 or 9) as `launches_<suffix>` and, for the pair-HMM,
+    MEC and k-mer kernels, their rows at that run's inputs (`max_abs_err`
+    taken over them too)."""
     for e in kernels:
-        for dtype, run in noisy.items():
-            if e["name"] not in run["kernel_launches"]:
-                continue
-            e[f"launches_run_{dtype.lower()}"] = \
-                run["kernel_launches"][e["name"]]
-            rows = {"pairhmm_viterbi": [run["pairhmm_bucket"]],
-                    "mec_phase": [run["mec"]]}.get(
-                e["name"], [r for r in run["kmer"] if r["name"] == e["name"]])
-            e["shapes"] = e["shapes"] + rows
-            e["max_abs_err"] = max([e["max_abs_err"]]
-                                   + [r["max_abs_err"] for r in rows])
+        if e["name"] not in run["kernel_launches"]:
+            continue
+        e[f"launches_{suffix}"] = run["kernel_launches"][e["name"]]
+        rows = {"pairhmm_viterbi": [run["pairhmm_bucket"]],
+                "mec_phase": [run["mec"]]}.get(
+            e["name"], [r for r in run["kmer"] if r["name"] == e["name"]])
+        e["shapes"] = e["shapes"] + rows
+        e["max_abs_err"] = max([e["max_abs_err"]]
+                               + [r["max_abs_err"] for r in rows])
+
+
+# tools/pin_scale_run.py's pin of tools/scale_run.py's 5 Mb row (the JAX
+# package on the CPU): the arguments, the sim's inputs and `run`'s six
+# outputs; and its merged VCF for a diff
+SCALE_PIN = os.path.join(REPO, "tests", "data", "scale_run_sha256.json")
+SCALE_VARIANTS = os.path.join(REPO, "tests", "data",
+                              "scale_run_variants.vcf")
+# the scale runs' floor on SV recall, precision and GT against the truth
+SCALE_FLOOR = 0.95
+
+
+def _scale_args(pin: dict, mb: float) -> list[str]:
+    """The pin's arguments at `mb` Mb: tools/scale_run.py's recipe at 24x
+    (seed 11, 9 kb HiFi reads at err 0.002)."""
+    args = pin["scale_args"]
+    i = args.index("--mb")
+    return args[:i + 1] + [f"{mb:g}"] + args[i + 2:]
+
+
+def phase9_scale_run(args: list[str], pin) -> dict:
+    """tools/scale_run_torch.py (the port's twin of tools/scale_run.py)
+    with `--device cuda` at `args`: `sim`, then `run --profile --resume` on
+    one chromosome, then the port's eval on the card.  With `pin` the sim's
+    inputs and the six outputs must be the JAX package's pinned bytes.  SV
+    recall, precision and GT must reach SCALE_FLOOR.  Prints the stage
+    table, peak RSS and device memory, the launches by shape (the MEC's
+    (O, restarts, S, R) with the design `mec_plan` takes) and the k-mer
+    tables built against the partition's cap; then, untraced, the pair-HMM
+    kernel at the run's fullest bucket, the MEC kernel at its largest
+    observation set (every design in turns) and the three k-mer kernels at
+    its largest chunk, each against its plain version and timed beside its
+    bound."""
+    from volcanosv_tpu_torch.ops import banded_align as ba
+    from volcanosv_tpu_torch.phasing import phase, realign
+    from volcanosv_tpu_torch.utils.logging import stage_report
+    mb = float(args[args.index("--mb") + 1])
+    tag = f"phase 9: scale run {mb:g} Mb"
+    d = os.path.join(WORK, f"scale{mb:g}")
+    report_path = os.path.join(d, "scale_torch.json")
+    buckets, vote_reads, fullest = [], [], {}
+    undo_buckets = _watch_buckets(buckets, vote_reads, fullest)
+    calls, kept = {}, {}
+    undo = _watch(calls, kept)
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        # the tool prints its report; this script's standard output ends
+        # with the contract's lines alone
+        with contextlib.redirect_stdout(sys.stderr):
+            rc = _scale_tool().main(args + ["--work", d, "--out",
+                                            report_path, "--device", "cuda"])
+    finally:
+        undo()
+        undo_buckets()
+    wall_s = time.perf_counter() - t0
+    kernel_launches = _counts()
+    mec_shapes = []
+    for O, NR, S, R in _wrappers()["mec_phase"].shapes:
+        branch, ctas = phase.mec_design(S, R, O)
+        mec_shapes.append(dict(O=O, NR=NR, S=S, R=R,
+                               design=_mec_design_name(branch, ctas or None)))
+    shapes = dict(
+        banded_dp=_dp_shapes(ba.banded_dp.shapes),
+        tb_walk=_walk_shapes(ba.tb_walk.shapes),
+        pairhmm_viterbi=_shape_counts(_wrappers()["pairhmm_viterbi"].shapes,
+                                      ("B", "R", "W")),
+        mec_phase=mec_shapes, **_kmer_shapes())
+    if rc != 0:
+        raise AssertionError(f"{tag}: tools/scale_run_torch.py exited {rc}")
+    with open(report_path) as fh:
+        report = json.load(fh)
+    pinned = None
+    if pin is not None:
+        pinned = _check_pin(pin, args, os.path.join(d, "sim"),
+                            os.path.join(d, "out"), SCALE_VARIANTS, tag,
+                            "scale_args")
+        _log(f"{tag}: the sim's inputs and run's six outputs are the JAX "
+             f"package's pinned bytes {json.dumps(pinned)}")
+    for name in ("banded_dp", "tb_walk", "pairhmm_viterbi", "mec_phase",
+                 *KMER_KERNELS):
+        if kernel_launches[name] <= 0:
+            raise AssertionError(f"{tag}: {name} never launched")
+    acc = report["accuracy"]
+    _log(f"{tag}: {report['pipeline_wall_s']} s ({report['s_per_mb']} s a "
+         f"Mb; {wall_s:.1f} s with the sim and eval), peak RSS "
+         f"{report['peak_rss_gb']} GB, peak device memory "
+         f"{report['device_max_allocated_gb']} GB allocated, "
+         f"{report['device_max_reserved_gb']} GB reserved, on "
+         f"{report['card']}\n"
+         f"{tag}: SV accuracy (the port's eval on the card) "
+         f"{json.dumps(acc)}\n"
+         f"{tag}: launches {json.dumps(kernel_launches)}\n"
+         f"{tag}: launches by shape {json.dumps(shapes)}\n"
+         f"{tag}: k-mer tables built {json.dumps(report['partition_tables'])}"
+         f"\n" + stage_report())
+    low = [k for k in ("recall", "precision", "gt_concordance")
+           if acc[k] < SCALE_FLOOR]
+    if low:
+        raise AssertionError(f"{tag}: {low} below {SCALE_FLOOR}: "
+                             f"{json.dumps(acc)}")
+    top = max(mec_shapes, key=lambda r: r["O"])
+    beyond = [r for r in mec_shapes if r["design"] != "smem/1"]
+    if beyond:
+        _log(f"{tag}: MEC launches past one CTA a restart "
+             f"{json.dumps(beyond)}")
+    else:
+        _log(f"{tag}: every MEC launch took one CTA a restart; the largest "
+             f"set has O = {top['O']} (one CTA up to "
+             f"{phase.MEC_ONE_CTA_MAX_OBS})")
+    if not fullest:
+        raise AssertionError(f"{tag}: no pair-HMM bucket was kept")
+    bucket = _viterbi_row(
+        f"the {mb:g} Mb run's fullest bucket",
+        *realign._bucket(*fullest["args"]), fullest["err"],
+        fullest["args"][2].shape[1], True)
+    margs, mkw = phase._mec_inputs(*kept["_mec_solve"][0][:-1], "cuda")
+    mec = _mec_row(f"the {mb:g} Mb run's largest observation set", margs,
+                   **mkw, cpu=True, timed=True)
+    mec["designs_ms"] = _mec_designs_in_turns(margs, mkw["n_reads"],
+                                              mkw["n_iter"], mec["snps"])
+    _log(f"{tag}: MEC at the run's largest set, designs in turns (ms) "
+         f"{json.dumps(mec['designs_ms'])}")
+    kmer_rows = _kmer_rows(kept)
+    return dict(args=args, wall_s=wall_s, report=report,
+                kernel_launches=kernel_launches, shapes=shapes,
+                pairhmm_buckets=len(buckets),
+                pairhmm_real_pairs=sum(b["real"] for b in buckets),
+                vote_chunks=len(vote_reads), pinned=pinned,
+                mec_past_one_cta=len(beyond), mec_largest_O=top["O"],
+                pairhmm_bucket=bucket, mec=mec, kmer=kmer_rows)
+
+
+def _scale_only(mb: float, seed: int, smi: str) -> int:
+    """`--scale MB`: phase 9 at MB Mb, held to the pin where MB is the
+    pin's length, then the DP and the walk at the largest launch of each
+    (mode, design, W) of the run (`_new_dp_classes` against no rows).
+    Prints the phase's summary, the card and the kernels' rows."""
+    import numpy as np
+    import torch
+    with open(SCALE_PIN) as fh:
+        pin = json.load(fh)
+    args = _scale_args(pin, mb)
+    scale = phase9_scale_run(args, pin if args == pin["scale_args"]
+                             else None)
+    smem = _smem_latency()
+    rng = np.random.default_rng(seed + 9)
+
+    def check(top):
+        row, wrow = _check_top_shape(rng, smem, top)
+        return row if "mode" in top else wrow
+    dp, walk = scale["shapes"]["banded_dp"], scale["shapes"]["tb_walk"]
+    scale["dp_classes"] = _new_dp_classes([], dp, check) \
+        + _new_dp_classes([], walk, check)
+    _log(f"phase 9: the DP and the walk at the largest launch of each "
+         f"class {json.dumps(scale['dp_classes'])}")
+    print(json.dumps(scale))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def main() -> int:
@@ -3315,6 +3610,12 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace phases 2, 4 and 5 with torch.profiler and "
                          "print the device time by kernel")
+    ap.add_argument("--scale", type=float, metavar="MB",
+                    help="run phase 9 alone at MB Mb (the pin's recipe at "
+                         "another length; the bytes are held to the pin at "
+                         "its own length only), then the DP and the walk "
+                         "at the largest launch of each (mode, design, W) "
+                         "the run made")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -3340,19 +3641,37 @@ def main() -> int:
          f"{time.perf_counter() - t_start:.1f} s "
          f"({cuda_build.build_dir()}) on {smi}")
 
-    info = {}
-    dp_rows, walk_rows, smem = phase1_kernels(args.seed)
-    launches, info["slice"] = phase2_slice(args.seed, args.profile)
-    info["slice"]["eval_alt"] = phase2b_eval_alt()
-    phase3_cuda_vs_cpu(args.seed)
-    info["asm"], kept = phase4_asm(args.seed, args.profile)
-    info["asm_cuda_vs_cpu"] = phase4b_asm_cuda_vs_cpu(args.seed, kept)
-    info["run"] = phase5_run_golden(args.profile)
-    info["run_cuda_vs_cpu"] = phase5b_run_cuda_vs_cpu()
-    info["qc_sd"] = phase6_qc_sd(args.seed)
-    info["two_ranks"] = phase7_two_ranks(args.seed)
-    info["noisy"] = phase8_noisy_runs()
-    _log(f"total {time.perf_counter() - t_start:.1f} s")
+    if args.scale is not None:
+        return _scale_only(args.scale, args.seed, smi)
+    info = {"phase_s": {}}
+
+    def timed(phase: str, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        info["phase_s"][phase] = time.perf_counter() - t0
+        _log(f"phase {phase} took {info['phase_s'][phase]:.1f} s")
+        return out
+
+    dp_rows, walk_rows, smem = timed("1", phase1_kernels, args.seed)
+    launches, info["slice"] = timed("2", phase2_slice, args.seed,
+                                    args.profile)
+    info["slice"]["eval_alt"] = timed("2b", phase2b_eval_alt)
+    timed("3", phase3_cuda_vs_cpu, args.seed)
+    info["asm"], kept = timed("4", phase4_asm, args.seed, args.profile)
+    info["asm_cuda_vs_cpu"] = timed("4b", phase4b_asm_cuda_vs_cpu,
+                                    args.seed, kept)
+    cpu_sides = start_cpu_sides_5b_6()
+    info["run"] = timed("5", phase5_run_golden, args.profile)
+    info["run_cuda_vs_cpu"] = timed("5b", phase5b_run_cuda_vs_cpu,
+                                    cpu_sides["run"])
+    info["qc_sd"] = timed("6", phase6_qc_sd, args.seed, cpu_sides["qc"])
+    info["two_ranks"] = timed("7", phase7_two_ranks, args.seed)
+    info["noisy"] = timed("8", phase8_noisy_runs)
+    with open(SCALE_PIN) as fh:
+        pin = json.load(fh)
+    info["scale"] = timed("9", phase9_scale_run, pin["scale_args"], pin)
+    _log(f"total {time.perf_counter() - t_start:.1f} s; by phase (s) "
+         f"{json.dumps(info['phase_s'])}")
 
     # each path's most-launched shapes, checked here where phase 1 holds
     # no row at them (these launches are not the paths' counts)
@@ -3376,7 +3695,8 @@ def main() -> int:
         check)
     # the later slices' paths: qc and asm --sd on the card (phase 6), `run`
     # over two ranks (phase 7, summed over the ranks), `run -d CLR` and
-    # `run -d ONT` (phase 8); their launches by shape
+    # `run -d ONT` (phase 8), `run` at 5 Mb (phase 9); their launches by
+    # shape
     qc_sd = info["qc_sd"]
     paths = {
         "qc": ("qc and asm --sd",
@@ -3396,17 +3716,24 @@ def main() -> int:
             f"run -d {dtype}",
             {k: run["kernel_launches"][k] for k in ("banded_dp", "tb_walk")},
             [run["shapes"]["banded_dp"], run["shapes"]["tb_walk"]])
+    scale = info["scale"]
+    paths["scale"] = (
+        f"run at {scale['report']['genome_mb']:g} Mb "
+        f"(tools/scale_run_torch.py)",
+        {k: scale["kernel_launches"][k] for k in ("banded_dp", "tb_walk")},
+        [scale["shapes"]["banded_dp"], scale["shapes"]["tb_walk"]])
     path_rows = {tag: (_row_at_top_shape(dp_rows, dp, check),
                        _row_at_top_shape(walk_rows, walk, check))
                  for tag, (_p, _n, (dp, walk)) in paths.items()}
-    # every (mode, design, W) the noisy runs launched that no row holds yet
-    for dtype in info["noisy"]:
-        _p, _n, (dp, walk) = paths[dtype.lower()]
-        info["noisy"][dtype]["new_dp_classes"] = \
-            _new_dp_classes(dp_rows, dp, check) \
+    # every (mode, design, W) the noisy runs and the scale run launched
+    # that no row holds yet
+    for tag, run in [(t.lower(), r) for t, r in info["noisy"].items()] \
+            + [("scale", scale)]:
+        _p, _n, (dp, walk) = paths[tag]
+        run["new_dp_classes"] = _new_dp_classes(dp_rows, dp, check) \
             + _new_dp_classes(walk_rows, walk, check)
-    _log(f"top shapes of qc/asm --sd, of the two ranks' run and of the "
-         f"CLR and ONT runs: {json.dumps(path_rows)}")
+    _log(f"top shapes of qc/asm --sd, of the two ranks' run, of the CLR "
+         f"and ONT runs and of the scale run: {json.dumps(path_rows)}")
 
     warp_rows = [r for r in dp_rows if r["branch"] == "warp"]
     group_rows = [r for r in dp_rows if r["branch"] == "group"]
@@ -3480,7 +3807,9 @@ def main() -> int:
     kernels += _scan_kernel_entries(info, rng)
     kernels += _kmer_kernel_entries(info)
     kernels += _mec_kernel_entries(info)
-    _add_noisy_runs(kernels, info["noisy"])
+    for dtype, run in info["noisy"].items():
+        _add_run_rows(kernels, run, f"run_{dtype.lower()}")
+    _add_run_rows(kernels, info["scale"], "scale")
     print(json.dumps(info))
     print(smi)
     print(json.dumps({"kernels": kernels}))

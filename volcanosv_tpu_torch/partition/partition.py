@@ -73,6 +73,7 @@ def _read_codes(seqs: list[str], device):
 
 
 _FLAT = 1 << 21      # codes per device launch for table building
+MAX_TABLES = 8       # k-mer tables resident at once (partition_reads' LRU)
 
 
 def build_hap_tables(hap_read_seqs: dict[str, list[str]], k: int,
@@ -160,7 +161,6 @@ def partition_reads(
     from collections import OrderedDict
     zero = torch.zeros(4**cfg.k, dtype=torch.int32, device=device)
     table_cache: OrderedDict[str, torch.Tensor] = OrderedDict()
-    _MAX_TABLES = 8
 
     def get_table(h: str) -> torch.Tensor:
         t = table_cache.get(h)
@@ -169,7 +169,7 @@ def partition_reads(
             t = build_hap_tables({h: seqs}, cfg.k, device)[h] if seqs \
                 else zero
             table_cache[h] = t
-            while len(table_cache) > _MAX_TABLES:
+            while len(table_cache) > MAX_TABLES:
                 table_cache.popitem(last=False)
         else:
             table_cache.move_to_end(h)
