@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (volcanosv_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--profile]
+    python3 chip_smoke.py [--seed 0] [--profile] [--scale MB | --repeat]
 
 Run from the root of a checkout; it needs one CUDA card, builds the CUDA
 kernels from `volcanosv_tpu_torch/csrc/` with nvcc, and writes its data
@@ -232,14 +232,51 @@ Phase 9  `run` at chromosome scale through tools/scale_run_torch.py (the
          timed beside its bound; after all phases the DP and the walk at
          the run's most launched shapes and at each (mode, design, W) no
          earlier row holds.  `--scale MB` runs this phase alone at MB Mb
-         (the pin's recipe at another length, held to the pin at its own
-         length only), then the DP and the walk at the largest launch of
-         every (mode, design, W) the run made.
+         (the pin's recipe at another length, held to the pin at the
+         lengths it has a row for: 5, and 10 Mb under "rows"), then the
+         DP and the walk at the largest launch of every (mode, design, W)
+         the run made.
+Phase 10 `run` on a repeat-rich reference: the port's `sim` at
+         tests/test_repeat_rich.py's recipe (300 kb with 5 tandem arrays,
+         2 segdup pairs at ~97% identity and 6 homopolymer runs in the
+         reference, every SV type, 30x HiFi at 9 kb), its reads written as
+         an unaligned BAM (flag 4, the FASTQ's order;
+         tools/pin_repeat_run.py's `write_reads_bam` with the port's
+         BamWriter), then `run --device cuda --fastq`, traced for its busy
+         time: the sim's files, reads.bam, the six outputs and phased.bam
+         must have the sha256 and sizes of
+         tests/data/repeat_run_sha256.json, made from the JAX package on
+         the CPU (tools/pin_repeat_run.py; a mismatch prints the merged
+         VCF's diff against tests/data/repeat_run_variants.vcf), SV recall
+         >= 0.85 and precision >= 0.90 through the port's eval on the card
+         and a <DUP> among the complex-SV calls (that test's floors), and
+         every kernel of `run` must have launched.  The stage table and
+         the launches by shape are printed.  Then, untraced, each kernel
+         against its plain version at the run's fullest shapes: the
+         pair-HMM at its fullest bucket, the MEC at its largest
+         observation set (every design in turns), the k-mer kernels at the
+         largest chunk, the DP and the walk at the largest launch of each
+         (mode, design, W).  Then `run --device cuda --bam reads.bam` and
+         `run --device cuda --bam <the FASTQ run's phased.bam>` (aligned,
+         coordinate-sorted, HP/PS tagged): each run's six outputs pinned
+         (tests/data/repeat_run_bam_variants.vcf for the second's diff).
+         Last, the restricted runs on phase 5b's sim and the contigs of
+         its card run: vc-large-indel, vc-small-indel and vc-complex-sv,
+         each with `--chrom chr2` and with a `--bed` of sub-intervals on
+         both chromosomes, and vc-large-indel unrestricted, on the card and
+         on the CPU (one process of its own beside the card): each VCF
+         byte-identical, each command with records in a restricted run, and
+         the `--chrom chr2` large-indel records the unrestricted run's chr2
+         records (tests/test_cli_multichrom.py's subset).  `--repeat` runs
+         phase 5b's card run and this phase alone.
 
-The CPU sides of phase 4b's three `asm` checks, of phase 5b's `run` and
-of phase 6's `qc` run in processes of their own (two torch threads each)
-while the card works; each phase joins its own, and any left running when
-a phase raises is killed at exit.  Each phase's seconds are printed.
+The CPU sides of phase 4b's three `asm` checks, of phase 5b's `run`, of
+phase 6's `qc` and of phase 10's restricted runs run in processes of
+their own (two torch threads each) while the card works, each started as
+soon as its inputs exist: 4b's after phase 1, 6's after phase 4, 5b's
+before phase 5, 10's after phase 6; each phase joins its own, and any
+left running when a phase raises is killed at exit.  Each phase's
+seconds are printed.
 
 Any failure raises.  On success the last four lines of standard
 output are the phases' summary (launches by shape, stage times, eval), the
@@ -251,8 +288,9 @@ launches are the golden `run`'s, `coverage_viterbi`'s and
 `coverage_posteriors`' those of `qc` and `asm --sd`, the k-mer and MEC
 kernels' the golden `run`'s, timed at phase 4's inputs, and
 canonical_hashes', on no path, at 2^21 hashes and k 12; each wrapper's
-entry adds its launches on the CLR, ONT and scale runs as
-`launches_run_clr`, `launches_run_ont` and `launches_scale`), and the
+entry adds its launches on the CLR, ONT, scale and repeat-rich runs as
+`launches_run_clr`, `launches_run_ont`, `launches_scale` and
+`launches_repeat`), and the
 `{"ok": true, ...}` line.
 """
 from __future__ import annotations
@@ -1569,6 +1607,17 @@ CLI_TIMED = ("import sys, time\n"
              "rc = main(sys.argv[1:])\n"
              "print(time.perf_counter() - t0)\n"
              "sys.exit(rc)\n")
+# runs the port's CLI on each argument list of a JSON list in turn, in
+# one process, and prints each command's wall seconds
+CLI_SEQ_TIMED = ("import json, sys, time\n"
+                 "from volcanosv_tpu_torch.cli import main\n"
+                 "secs = []\n"
+                 "for args in json.loads(sys.argv[1]):\n"
+                 "    t0 = time.perf_counter()\n"
+                 "    if main(args) != 0:\n"
+                 "        sys.exit(1)\n"
+                 "    secs.append(time.perf_counter() - t0)\n"
+                 "print(json.dumps(secs))\n")
 
 
 def _write_pipeline_case(d: str, err: float, length: int) -> None:
@@ -1613,14 +1662,16 @@ def _kill_cpu_sides() -> None:
             proc.wait()
 
 
-def _start_cpu_cli(args: list[str], log: str):
-    """The port's CLI with `args` (a `--device cpu` command) in a process
-    of its own on two torch threads, its log in `log`: the CPU side of a
-    cuda = cpu check, run while the card works; `_join_cpu_cli` joins it."""
+def _start_cpu_cli(args: list[str], log: str, script: str = CLI_TIMED):
+    """The port's CLI with `args` (a `--device cpu` command; with
+    `script` CLI_SEQ_TIMED, one argument: a JSON list of such commands) in
+    a process of its own on two torch threads, its log in `log`: the CPU
+    side of a cuda = cpu check, run while the card works; `_join_cpu_cli`
+    joins it."""
     os.makedirs(os.path.dirname(log), exist_ok=True)
     with open(log, "w") as fh:
         proc = subprocess.Popen(
-            [sys.executable, "-c", CLI_TIMED] + args, cwd=REPO,
+            [sys.executable, "-c", script] + args, cwd=REPO,
             stdout=subprocess.PIPE, stderr=fh, text=True,
             env=dict(os.environ, OMP_NUM_THREADS="2"))
     proc.log = log
@@ -1628,13 +1679,13 @@ def _start_cpu_cli(args: list[str], log: str):
     return proc
 
 
-def _join_cpu_cli(proc, what: str) -> float:
+def _join_cpu_cli(proc, what: str):
     """Waits for a `_start_cpu_cli` process; raises where it failed, else
-    returns its command's wall seconds."""
+    returns its command's wall seconds (CLI_SEQ_TIMED: each command's)."""
     stdout, _ = proc.communicate()
     if proc.returncode != 0:
         raise AssertionError(f"{what} --device cpu failed (log {proc.log})")
-    return float(stdout.strip().splitlines()[-1])
+    return json.loads(stdout.strip().splitlines()[-1])
 
 
 def _asm_on_card(d: str, dtype: str, err: float, length: int) -> dict:
@@ -2100,31 +2151,41 @@ def _canonical_rows(seed: int) -> list[dict]:
 NOISY_ASM_LENGTH = 40_000
 
 
-def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict) -> dict:
-    """`asm` on cuda and cpu (byte-identical outputs), HiFi, CLR and ONT
-    (where the pair-HMM kernel must launch), then the pair-HMM kernel
-    against its plain version (`_viterbi_rows`, `_viterbi_wide_rows`), the
-    MEC kernel (`_mec_rows`), canonical_hashes' kernel (`_canonical_rows`)
-    and the k-mer kernels (`_kmer_rows`, `_kmer_edges`) against theirs,
-    each timed beside its bound.  The three `asm` runs' CPU sides run in
-    processes of their own from the phase's start, joined at its end."""
-    # CLR (13.5% total error) realigns every candidate site through the
-    # pair-HMM (PhasingConfig.realign_all): the chain pileup -> Viterbi ->
-    # allele call -> MEC -> partition -> assembly, card against CPU
-    # ONT (9% total error) likewise, with its own aligner preset
-    # (map-ont) and signature rules.  Both at 40 kb: the CPU side's polish
-    # takes minutes (212 s for ONT at 80 kb), and phase 8 runs both types
-    # at 200 kb on the card
-    cases = (("hifi", "Hifi", 0.001, 80_000, "asm_cuda_vs_cpu"),
+# phase 4b's `asm` cases: key, read type, error, length, directory.  CLR
+# (13.5% total error) realigns every candidate site through the pair-HMM
+# (PhasingConfig.realign_all): the chain pileup -> Viterbi -> allele call
+# -> MEC -> partition -> assembly, card against CPU; ONT (9% total error)
+# likewise, with its own aligner preset (map-ont) and signature rules.
+# Both at 40 kb: the CPU side's polish takes minutes (212 s for ONT at
+# 80 kb), and phase 8 runs both types at 200 kb on the card
+ASM_CASES = (("hifi", "Hifi", 0.001, 80_000, "asm_cuda_vs_cpu"),
              ("clr", "CLR", 0.09, NOISY_ASM_LENGTH, "asm_clr_cuda_vs_cpu"),
              ("ont", "ONT", 0.06, NOISY_ASM_LENGTH, "asm_ont_cuda_vs_cpu"))
+
+
+def start_cpu_sides_4b() -> dict:
+    """Phase 4b's three `asm` cases written, and their CPU sides started
+    (`_start_cpu_cli`); they need nothing of the card, so the whole run
+    starts them after phase 1, to run beside phases 2-4b."""
     started = {}
-    for key, dtype, err, length, sub in cases:
+    for key, dtype, err, length, sub in ASM_CASES:
         d = os.path.join(WORK, sub)
         _write_pipeline_case(d, err, length)
         started[key] = _start_cpu_cli(
             _asm_args(d, os.path.join(d, "out_cpu"), "cpu")
             + ["-d", dtype, "--profile"], os.path.join(d, "cpu.log"))
+    return started
+
+
+def phase4b_asm_cuda_vs_cpu(seed: int, kept: dict, started: dict) -> dict:
+    """`asm` on cuda and cpu (byte-identical outputs), HiFi, CLR and ONT
+    (where the pair-HMM kernel must launch), then the pair-HMM kernel
+    against its plain version (`_viterbi_rows`, `_viterbi_wide_rows`), the
+    MEC kernel (`_mec_rows`), canonical_hashes' kernel (`_canonical_rows`)
+    and the k-mer kernels (`_kmer_rows`, `_kmer_edges`) against theirs,
+    each timed beside its bound.  The three `asm` runs' CPU sides
+    (`started`, by `start_cpu_sides_4b`) are joined at the phase's end."""
+    cases = ASM_CASES
     info = {key: _asm_on_card(os.path.join(WORK, sub), dtype, err, length)
             for key, dtype, err, length, sub in cases}
     for key, dtype, *_ in cases[1:]:
@@ -2474,26 +2535,29 @@ def phase5_run_golden(profile: bool) -> dict:
                 gates=gates, profile=profile_info)
 
 
-def start_cpu_sides_5b_6() -> dict:
-    """The CPU sides of phase 5b's `run` (its sim written first) and of
-    phase 6's `qc` (on phase 4's outputs), started (`_start_cpu_cli`) to
-    run beside phase 5."""
+def start_cpu_side_5b():
+    """The CPU side of phase 5b's `run` (its sim written first), started
+    (`_start_cpu_cli`) to run beside phase 5."""
     from volcanosv_tpu_torch import cli
     d = os.path.join(WORK, "run_cuda_vs_cpu")
     if cli.main(["sim", "-o", os.path.join(d, "sim")] + RUN_SIM) != 0:
         raise AssertionError("phase 5b: sim failed")
-    qc_out = os.path.join(WORK, "qc", "cpu")
-    return {
-        "run": _start_cpu_cli(
-            _run_args(os.path.join(d, "sim"), os.path.join(d, "out_cpu"),
-                      "cpu") + ["--profile"], os.path.join(d, "cpu.log")),
-        "qc": _start_cpu_cli(_qc_args() + ["-o", qc_out, "--device", "cpu"],
-                             os.path.join(WORK, "qc", "cpu.log"))}
+    return _start_cpu_cli(
+        _run_args(os.path.join(d, "sim"), os.path.join(d, "out_cpu"),
+                  "cpu") + ["--profile"], os.path.join(d, "cpu.log"))
+
+
+def start_cpu_side_6():
+    """The CPU side of phase 6's `qc` (on phase 4's outputs), started
+    (`_start_cpu_cli`) after phase 4, to run beside phases 4b-5b."""
+    return _start_cpu_cli(
+        _qc_args() + ["-o", os.path.join(WORK, "qc", "cpu"), "--device",
+                      "cpu"], os.path.join(WORK, "qc", "cpu.log"))
 
 
 def phase5b_run_cuda_vs_cpu(cpu_proc) -> dict:
     """`run` with --device cuda on the 2 x 50 kb recipe, and the same with
-    --device cpu (`cpu_proc`, started by `start_cpu_sides_5b_6`): the six
+    --device cpu (`cpu_proc`, started by `start_cpu_side_5b`): the six
     outputs and phased.bam byte-identical.  Nothing is caught."""
     from volcanosv_tpu_torch import cli
     from volcanosv_tpu_torch.utils.logging import STAGE_TIMES
@@ -2983,7 +3047,7 @@ def _qc_args() -> list[str]:
 
 def phase6_qc_sd(seed: int, qc_cpu) -> dict:
     """QC and SD recovery on the card: `qc` on phase 4's contigs and reads
-    (its CPU side `qc_cpu`, started by `start_cpu_sides_5b_6`), the
+    (its CPU side `qc_cpu`, started by `start_cpu_side_6`), the
     coverage HMM at chromosome scale, `sd_recover` and `asm --sd` on phase
     4b's HiFi case, each on cuda against cpu."""
     info = {}
@@ -3150,6 +3214,26 @@ def _dtype_gates(sim_dir: str, out: str, floors) -> dict:
     return gates
 
 
+def _run_shapes() -> dict:
+    """Every kernel of `run` by its launches' shapes since the counts were
+    set to 0: the DP's (mode, design, B, M, W), the walk's (design, B, M,
+    W), the pair-HMM's (B, R, W), the MEC's (O, restarts, S, R) with the
+    design `mec_plan` takes, and the k-mer kernels'."""
+    from volcanosv_tpu_torch.ops import banded_align as ba
+    from volcanosv_tpu_torch.phasing import phase
+    mec_shapes = []
+    for O, NR, S, R in _wrappers()["mec_phase"].shapes:
+        branch, ctas = phase.mec_design(S, R, O)
+        mec_shapes.append(dict(O=O, NR=NR, S=S, R=R,
+                               design=_mec_design_name(branch, ctas or None)))
+    return dict(
+        banded_dp=_dp_shapes(ba.banded_dp.shapes),
+        tb_walk=_walk_shapes(ba.tb_walk.shapes),
+        pairhmm_viterbi=_shape_counts(_wrappers()["pairhmm_viterbi"].shapes,
+                                      ("B", "R", "W")),
+        mec_phase=mec_shapes, **_kmer_shapes())
+
+
 def _noisy_run(dtype: str, err: float, floors, pin: dict) -> dict:
     """`sim` at DTYPE_SIM and `err`, then `run --device cuda -d dtype`,
     traced on the card for its busy time: the sim's inputs and the six
@@ -3160,7 +3244,6 @@ def _noisy_run(dtype: str, err: float, floors, pin: dict) -> dict:
     kernels at its inputs (`_kmer_rows`), each against its plain version
     and timed beside its bound."""
     from volcanosv_tpu_torch import cli
-    from volcanosv_tpu_torch.ops import banded_align as ba
     from volcanosv_tpu_torch.phasing import phase, realign
     from volcanosv_tpu_torch.utils.logging import STAGE_TIMES, stage_report
     tag = f"phase 8: run -d {dtype}"
@@ -3178,17 +3261,8 @@ def _noisy_run(dtype: str, err: float, floors, pin: dict) -> dict:
     rc, run_s, prof = _traced_cli(
         _run_args(sim_dir, out, "cuda") + ["-d", dtype], (undo, undo_buckets))
     kernel_launches = _counts()
-    mec_shapes = []
-    for O, NR, S, R in _wrappers()["mec_phase"].shapes:
-        branch, ctas = phase.mec_design(S, R, O)
-        mec_shapes.append(dict(O=O, NR=NR, S=S, R=R,
-                               design=_mec_design_name(branch, ctas or None)))
-    shapes = dict(
-        banded_dp=_dp_shapes(ba.banded_dp.shapes),
-        tb_walk=_walk_shapes(ba.tb_walk.shapes),
-        pairhmm_viterbi=_shape_counts(_wrappers()["pairhmm_viterbi"].shapes,
-                                      ("B", "R", "W")),
-        mec_phase=mec_shapes, **_kmer_shapes())
+    shapes = _run_shapes()
+    mec_shapes = shapes["mec_phase"]
     stages = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
     if rc != 0:
         raise AssertionError(f"{tag} exited {rc}")
@@ -3427,9 +3501,9 @@ def _mec_kernel_entries(info: dict) -> list[dict]:
 
 def _add_run_rows(kernels: list, run: dict, suffix: str) -> None:
     """Into each wrapper's kernels-line entry: its launches on `run` (a
-    `run` of phase 8 or 9) as `launches_<suffix>` and, for the pair-HMM,
-    MEC and k-mer kernels, their rows at that run's inputs (`max_abs_err`
-    taken over them too)."""
+    `run` of phase 8, 9 or 10) as `launches_<suffix>` and, for the
+    pair-HMM, MEC and k-mer kernels, their rows at that run's inputs
+    (`max_abs_err` taken over them too)."""
     for e in kernels:
         if e["name"] not in run["kernel_launches"]:
             continue
@@ -3444,7 +3518,9 @@ def _add_run_rows(kernels: list, run: dict, suffix: str) -> None:
 
 # tools/pin_scale_run.py's pin of tools/scale_run.py's 5 Mb row (the JAX
 # package on the CPU): the arguments, the sim's inputs and `run`'s six
-# outputs; and its merged VCF for a diff
+# outputs, and the same of its 10 Mb row under "rows" → "10"; and the 5 Mb
+# row's merged VCF for a diff (the 10 Mb row's:
+# scale_run_10mb_variants.vcf)
 SCALE_PIN = os.path.join(REPO, "tests", "data", "scale_run_sha256.json")
 SCALE_VARIANTS = os.path.join(REPO, "tests", "data",
                               "scale_run_variants.vcf")
@@ -3460,11 +3536,13 @@ def _scale_args(pin: dict, mb: float) -> list[str]:
     return args[:i + 1] + [f"{mb:g}"] + args[i + 2:]
 
 
-def phase9_scale_run(args: list[str], pin) -> dict:
+def phase9_scale_run(args: list[str], pin,
+                     variants: str = SCALE_VARIANTS) -> dict:
     """tools/scale_run_torch.py (the port's twin of tools/scale_run.py)
     with `--device cuda` at `args`: `sim`, then `run --profile --resume` on
     one chromosome, then the port's eval on the card.  With `pin` the sim's
-    inputs and the six outputs must be the JAX package's pinned bytes.  SV
+    inputs and the six outputs must be the JAX package's pinned bytes
+    (a mismatch prints the merged VCF's diff against `variants`).  SV
     recall, precision and GT must reach SCALE_FLOOR.  Prints the stage
     table, peak RSS and device memory, the launches by shape (the MEC's
     (O, restarts, S, R) with the design `mec_plan` takes) and the k-mer
@@ -3473,7 +3551,6 @@ def phase9_scale_run(args: list[str], pin) -> dict:
     observation set (every design in turns) and the three k-mer kernels at
     its largest chunk, each against its plain version and timed beside its
     bound."""
-    from volcanosv_tpu_torch.ops import banded_align as ba
     from volcanosv_tpu_torch.phasing import phase, realign
     from volcanosv_tpu_torch.utils.logging import stage_report
     mb = float(args[args.index("--mb") + 1])
@@ -3497,17 +3574,8 @@ def phase9_scale_run(args: list[str], pin) -> dict:
         undo_buckets()
     wall_s = time.perf_counter() - t0
     kernel_launches = _counts()
-    mec_shapes = []
-    for O, NR, S, R in _wrappers()["mec_phase"].shapes:
-        branch, ctas = phase.mec_design(S, R, O)
-        mec_shapes.append(dict(O=O, NR=NR, S=S, R=R,
-                               design=_mec_design_name(branch, ctas or None)))
-    shapes = dict(
-        banded_dp=_dp_shapes(ba.banded_dp.shapes),
-        tb_walk=_walk_shapes(ba.tb_walk.shapes),
-        pairhmm_viterbi=_shape_counts(_wrappers()["pairhmm_viterbi"].shapes,
-                                      ("B", "R", "W")),
-        mec_phase=mec_shapes, **_kmer_shapes())
+    shapes = _run_shapes()
+    mec_shapes = shapes["mec_phase"]
     if rc != 0:
         raise AssertionError(f"{tag}: tools/scale_run_torch.py exited {rc}")
     with open(report_path) as fh:
@@ -3515,7 +3583,7 @@ def phase9_scale_run(args: list[str], pin) -> dict:
     pinned = None
     if pin is not None:
         pinned = _check_pin(pin, args, os.path.join(d, "sim"),
-                            os.path.join(d, "out"), SCALE_VARIANTS, tag,
+                            os.path.join(d, "out"), variants, tag,
                             "scale_args")
         _log(f"{tag}: the sim's inputs and run's six outputs are the JAX "
              f"package's pinned bytes {json.dumps(pinned)}")
@@ -3574,17 +3642,20 @@ def phase9_scale_run(args: list[str], pin) -> dict:
 
 
 def _scale_only(mb: float, seed: int, smi: str) -> int:
-    """`--scale MB`: phase 9 at MB Mb, held to the pin where MB is the
-    pin's length, then the DP and the walk at the largest launch of each
-    (mode, design, W) of the run (`_new_dp_classes` against no rows).
-    Prints the phase's summary, the card and the kernels' rows."""
+    """`--scale MB`: phase 9 at MB Mb, held to the pin's row of that length
+    where it has one (5 Mb at its top level, 10 Mb under "rows"), then the
+    DP and the walk at the largest launch of each (mode, design, W) of the
+    run (`_new_dp_classes` against no rows).  Prints the phase's summary,
+    the card and the kernels' rows."""
     import numpy as np
     import torch
     with open(SCALE_PIN) as fh:
         pin = json.load(fh)
     args = _scale_args(pin, mb)
-    scale = phase9_scale_run(args, pin if args == pin["scale_args"]
-                             else None)
+    row, variants = (pin, SCALE_VARIANTS) if args == pin["scale_args"] \
+        else (pin.get("rows", {}).get(f"{mb:g}"), os.path.join(
+            REPO, "tests", "data", f"scale_run_{mb:g}mb_variants.vcf"))
+    scale = phase9_scale_run(args, row, variants)
     smem = _smem_latency()
     rng = np.random.default_rng(seed + 9)
 
@@ -3604,6 +3675,285 @@ def _scale_only(mb: float, seed: int, smi: str) -> int:
     return 0
 
 
+# tools/pin_repeat_run.py's pin (the JAX package on the CPU) of
+# tests/test_repeat_rich.py's sim and of `run` on its FASTQ, on the same
+# reads as an unaligned BAM and on the FASTQ run's phased.bam; the merged
+# VCF of each run, for a diff (the BAM of the FASTQ's reads gives the
+# FASTQ run's bytes)
+REPEAT_PIN = os.path.join(REPO, "tests", "data", "repeat_run_sha256.json")
+REPEAT_VARIANTS = {
+    "fastq": os.path.join(REPO, "tests", "data", "repeat_run_variants.vcf"),
+    "bam": os.path.join(REPO, "tests", "data", "repeat_run_variants.vcf"),
+    "phased_bam": os.path.join(REPO, "tests", "data",
+                               "repeat_run_bam_variants.vcf")}
+# phase 10's BED: sub-intervals of both chromosomes of phase 5b's recipe
+REGION_BED = "chr1\t10000\t30000\nchr2\t5000\t30000\n"
+REGION_VCF = {"vc-large-indel": "volcanosv_large_indel.vcf",
+              "vc-small-indel": "volcanosv_small_indel.vcf",
+              "vc-complex-sv": "volcanosv_complex_sv.vcf"}
+
+
+def _repeat_tool():
+    """tools/pin_repeat_run.py (it imports nothing of JAX until its main
+    runs): the sim's recipe, the runs, the floors and `write_reads_bam`."""
+    tools = os.path.join(REPO, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import pin_repeat_run
+    return pin_repeat_run
+
+
+def _region_args() -> dict:
+    """Phase 10's restricted commands on phase 5b's sim and the contigs of
+    its card run, without `-o` and `--device`: each vc command with `--chrom
+    chr2` and with REGION_BED, and vc-large-indel unrestricted.  Returns
+    the output's directory name → the arguments."""
+    src = os.path.join(WORK, "run_cuda_vs_cpu")
+    sim = os.path.join(src, "sim")
+    bed = os.path.join(WORK, "region", "sub.bed")
+    cases = {}
+    for cmd in REGION_VCF:
+        base = [cmd, "--ref", os.path.join(sim, "ref.fa"), "--contig",
+                os.path.join(src, "out_cuda", "final_contigs.fa"),
+                "--fastq", os.path.join(sim, "reads.fastq")]
+        if cmd == "vc-large-indel":
+            cases[cmd] = base
+        cases[f"{cmd}_chrom"] = base + ["--chrom", "chr2"]
+        cases[f"{cmd}_bed"] = base + ["--bed", bed]
+    return cases
+
+
+def start_cpu_side_10():
+    """The CPU side of phase 10's restricted runs (`_region_args`, on phase
+    5b's outputs): one process that runs them in turn beside the card
+    (from the end of phase 6 in the whole run)."""
+    d = os.path.join(WORK, "region")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "sub.bed"), "w") as fh:
+        fh.write(REGION_BED)
+    cmds = [args + ["-o", os.path.join(d, "cpu", name), "--device", "cpu"]
+            for name, args in _region_args().items()]
+    return _start_cpu_cli([json.dumps(cmds)], os.path.join(d, "cpu.log"),
+                          CLI_SEQ_TIMED)
+
+
+def _region_cuda_vs_cpu(cpu_proc) -> dict:
+    """Phase 10's restricted runs on the card, then joined with their CPU
+    side (`start_cpu_side_10`): each VCF byte-identical on cuda and cpu;
+    each command with records in a restricted VCF; vc-large-indel's `--chrom
+    chr2` records the (pos, svtype, svlen) of the unrestricted run's chr2
+    records (tests/test_cli_multichrom.py's subset)."""
+    from volcanosv_tpu_torch import cli
+    from volcanosv_tpu_torch.io.vcf import read_vcf
+    d = os.path.join(WORK, "region")
+    cases = _region_args()
+    secs, launches, recs = {"cuda": {}}, {}, {}
+    for name, args in cases.items():
+        t0 = time.perf_counter()
+        rc, launches[name], _shapes = _count_kernels(
+            lambda a=args, n=name: cli.main(
+                a + ["-o", os.path.join(d, "cuda", n), "--device", "cuda"]))
+        secs["cuda"][name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"phase 10: {name} --device cuda failed")
+        if launches[name]["banded_dp"] <= 0:
+            raise AssertionError(f"phase 10: {name} launched no DP")
+    secs["cpu"] = dict(zip(cases, _join_cpu_cli(
+        cpu_proc, "phase 10: restricted runs")))
+    for name, args in cases.items():
+        vcf = REGION_VCF[args[0]]
+        got, want = (_read(os.path.join(d, dev, name, vcf))
+                     for dev in ("cuda", "cpu"))
+        if got != want or not want:
+            raise AssertionError(f"phase 10: {name} {vcf} differs between "
+                                 "cuda and cpu")
+        _h, r = read_vcf(os.path.join(d, "cuda", name, vcf))
+        recs[name] = [(x.chrom, x.pos, x.svtype, x.svlen) for x in r]
+    for cmd in REGION_VCF:
+        if not (recs[f"{cmd}_chrom"] or recs[f"{cmd}_bed"]):
+            raise AssertionError(f"phase 10: {cmd} has no record in a "
+                                 "restricted run")
+    chr2 = [x[1:] for x in recs["vc-large-indel"] if x[0] == "chr2"]
+    got = recs["vc-large-indel_chrom"]
+    if not chr2 or {x[0] for x in got} != {"chr2"} \
+            or [x[1:] for x in got] != chr2:
+        raise AssertionError(f"phase 10: vc-large-indel --chrom chr2 gave "
+                             f"{got}, not the unrestricted run's chr2 "
+                             f"records {chr2}")
+    info = dict(s=secs, launches=launches,
+                records={n: len(r) for n, r in recs.items()})
+    _log(f"phase 10: restricted runs byte-identical on cuda and cpu "
+         f"{json.dumps(info)}")
+    return info
+
+
+def _repeat_pinned(pin: dict, run: str, sim_dir: str, out: str,
+                   tag: str) -> dict:
+    """One repeat-rich run's outputs (the FASTQ run's with its
+    phased.bam) and the sim's files against the pin (`_check_pin`)."""
+    want = dict(pin["runs"][run]["run"])
+    if run == "fastq":
+        want["phased.bam"] = pin["runs"][run]["phased.bam"]
+    return _check_pin(dict(sim_args=pin["sim_args"], sim=pin["sim"],
+                           run=want), _repeat_tool().SIM, sim_dir, out,
+                      REPEAT_VARIANTS[run], tag)
+
+
+def phase10_repeat_runs(smem: dict, seed: int, cpu_proc) -> dict:
+    """(a) The port's `sim` at tests/test_repeat_rich.py's recipe (tandem
+    arrays, segdup pairs and homopolymer runs in the reference) and its
+    reads written as an unaligned BAM, then `run --device cuda --fastq`,
+    traced on the card for its busy time: the sim's files, reads.bam, the
+    six outputs and phased.bam must be the JAX package's pinned bytes
+    (tests/data/repeat_run_sha256.json), that test's floors must hold
+    through the port's eval on the card (recall, precision, a <DUP> among
+    the complex-SV calls) and every kernel of `run` must have launched;
+    the stage table and the launches by shape are printed.  Then,
+    untraced, each kernel at the run's fullest shapes against its plain
+    version: the pair-HMM at its fullest bucket, the MEC at its largest
+    observation set (every design in turns), the three k-mer kernels at
+    the largest chunk, and the DP and the walk at the largest launch of
+    each (mode, design, W) the run made.  (b) `run --device cuda --bam`
+    on reads.bam and on (a)'s phased.bam: each run's six outputs pinned.
+    (c) The restricted runs (`_region_cuda_vs_cpu`)."""
+    import numpy as np
+
+    from volcanosv_tpu_torch import cli
+    from volcanosv_tpu_torch.eval import evaluate_files
+    from volcanosv_tpu_torch.io import bam
+    from volcanosv_tpu_torch.io.fastq import read_fastq
+    from volcanosv_tpu_torch.io.vcf import read_vcf
+    from volcanosv_tpu_torch.phasing import phase, realign
+    from volcanosv_tpu_torch.utils.logging import STAGE_TIMES, stage_report
+    tool = _repeat_tool()
+    with open(REPEAT_PIN) as fh:
+        pin = json.load(fh)
+    tag = "phase 10: repeat-rich run"
+    d = os.path.join(WORK, "repeat")
+    sim_dir = os.path.join(d, "sim")
+    t0 = time.perf_counter()
+    if cli.main(["sim", "-o", sim_dir] + tool.SIM) != 0:
+        raise AssertionError(f"{tag}: sim failed")
+    n_reads = tool.write_reads_bam(
+        os.path.join(sim_dir, "reads.bam"),
+        read_fastq(os.path.join(sim_dir, "reads.fastq")), bam)
+    sim_s = time.perf_counter() - t0
+
+    def run_args(run):
+        flag, path = tool.RUNS[run]
+        return ["run", "--ref", os.path.join(sim_dir, "ref.fa"), flag,
+                os.path.join(d, path), "-o", os.path.join(d, run),
+                "--device", "cuda"]
+    buckets, vote_reads, fullest = [], [], {}
+    undo_buckets = _watch_buckets(buckets, vote_reads, fullest)
+    calls, kept = {}, {}
+    undo = _watch(calls, kept)
+    rc, run_s, prof = _traced_cli(run_args("fastq"), (undo, undo_buckets))
+    kernel_launches = _counts()
+    shapes = _run_shapes()
+    stages = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
+    if rc != 0:
+        raise AssertionError(f"{tag}: run --fastq exited {rc}")
+    out = os.path.join(d, "fastq")
+    pinned = {"fastq": _repeat_pinned(pin, "fastq", sim_dir, out, tag)}
+    for name in ("banded_dp", "tb_walk", "pairhmm_viterbi", "mec_phase",
+                 *KMER_KERNELS):
+        if kernel_launches[name] <= 0:
+            raise AssertionError(f"{tag}: {name} never launched")
+    profile_info = _profile_summary(prof, run_s)
+    _log(f"{tag}: the sim's inputs, reads.bam ({n_reads} reads), run's six "
+         f"outputs and phased.bam are the JAX package's pinned bytes "
+         f"{json.dumps(pinned['fastq'])}\n"
+         f"{tag}: {run_s:.1f} s, launches {kernel_launches}\n"
+         f"{tag}: launches by shape {json.dumps(shapes)}\n" + stage_report())
+    _log(f"{tag}: device busy {profile_info['busy_ms']:.1f} ms of "
+         f"{run_s:.1f} s; pair-HMM launches {json.dumps(buckets)}; vote "
+         f"launches, real reads {vote_reads}; profile "
+         f"{json.dumps(profile_info)}")
+    sv = evaluate_files(os.path.join(sim_dir, "truth.vcf"),
+                        os.path.join(out, "volcanosv_variants.vcf"),
+                        device="cuda")
+    _h, cx = read_vcf(os.path.join(out, "volcanosv_complex_sv.vcf"))
+    gates = dict(sv=sv.summary(), complex_dups=sum(
+        str(r.svtype).startswith("DUP") for r in cx))
+    if sv.recall < tool.FLOORS["recall"] \
+            or sv.precision < tool.FLOORS["precision"] \
+            or not gates["complex_dups"]:
+        raise AssertionError(f"{tag}: floors {tool.FLOORS} and a <DUP> "
+                             f"failed: {json.dumps(gates)}")
+    _log(f"{tag}: floors met {json.dumps(gates)}")
+    # the kernels at the run's fullest shapes, untraced
+    bucket = _viterbi_row(
+        "the repeat-rich run's fullest bucket",
+        *realign._bucket(*fullest["args"]), fullest["err"],
+        fullest["args"][2].shape[1], True)
+    margs, mkw = phase._mec_inputs(*kept["_mec_solve"][0][:-1], "cuda")
+    mec = _mec_row("the repeat-rich run's largest observation set", margs,
+                   **mkw, cpu=True, timed=True)
+    mec["designs_ms"] = _mec_designs_in_turns(margs, mkw["n_reads"],
+                                              mkw["n_iter"], mec["snps"])
+    _log(f"{tag}: MEC at the run's largest set, designs in turns (ms) "
+         f"{json.dumps(mec['designs_ms'])}")
+    kmer_rows = _kmer_rows(kept)
+    rng = np.random.default_rng(seed + 10)
+
+    def check(top):
+        row, wrow = _check_top_shape(rng, smem, top)
+        return row if "mode" in top else wrow
+    dp_classes = _new_dp_classes([], shapes["banded_dp"], check) \
+        + _new_dp_classes([], shapes["tb_walk"], check)
+    _log(f"{tag}: the DP and the walk at the largest launch of each class "
+         f"{json.dumps(dp_classes)}")
+    # (b) the BAM runs
+    bam_runs = {}
+    for run in ("bam", "phased_bam"):
+        STAGE_TIMES.clear()
+        t1 = time.perf_counter()
+        rc, counts, _shapes = _count_kernels(
+            lambda r=run: cli.main(run_args(r)))
+        secs = time.perf_counter() - t1
+        if rc != 0:
+            raise AssertionError(f"{tag}: run {tool.RUNS[run]} exited {rc}")
+        pinned[run] = _repeat_pinned(pin, run, sim_dir,
+                                     os.path.join(d, run), tag)
+        bam_runs[run] = dict(run_s=secs, launches=counts, stages={
+            k: round(v[0], 3) for k, v in STAGE_TIMES.items()})
+        _log(f"{tag}: run {' '.join(tool.RUNS[run])} gave the pinned bytes "
+             f"in {secs:.1f} s {json.dumps(bam_runs[run])}")
+    region = _region_cuda_vs_cpu(cpu_proc)
+    return dict(sim_s=sim_s, run_s=run_s, stages=stages,
+                kernel_launches=kernel_launches, shapes=shapes,
+                pairhmm_buckets=buckets, vote_reads=vote_reads,
+                pinned=pinned, busy_ms=profile_info["busy_ms"],
+                profile=profile_info, gates=gates, pairhmm_bucket=bucket,
+                mec=mec, kmer=kmer_rows, dp_classes=dp_classes,
+                bam_runs=bam_runs, region=region)
+
+
+def _repeat_only(seed: int, smi: str) -> int:
+    """`--repeat`: phase 5b's `run` on the card alone (the restricted
+    runs' contigs), then phase 10.  Prints the phase's summary, the card
+    and the contract's last line."""
+    import torch
+
+    from volcanosv_tpu_torch import cli
+    d = os.path.join(WORK, "run_cuda_vs_cpu")
+    if cli.main(["sim", "-o", os.path.join(d, "sim")] + RUN_SIM) != 0 \
+            or cli.main(_run_args(os.path.join(d, "sim"),
+                                  os.path.join(d, "out_cuda"), "cuda")) != 0:
+        raise AssertionError("phase 5b's run --device cuda failed")
+    cpu = start_cpu_side_10()
+    t0 = time.perf_counter()
+    info = phase10_repeat_runs(_smem_latency(), seed, cpu)
+    _log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps(info))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3613,9 +3963,12 @@ def main() -> int:
     ap.add_argument("--scale", type=float, metavar="MB",
                     help="run phase 9 alone at MB Mb (the pin's recipe at "
                          "another length; the bytes are held to the pin at "
-                         "its own length only), then the DP and the walk "
-                         "at the largest launch of each (mode, design, W) "
-                         "the run made")
+                         "the lengths it has a row for, 5 and 10), then "
+                         "the DP and the walk at the largest launch of each "
+                         "(mode, design, W) the run made")
+    ap.add_argument("--repeat", action="store_true",
+                    help="run phase 10 alone (after phase 5b's card run, "
+                         "whose contigs its restricted runs take)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -3643,6 +3996,8 @@ def main() -> int:
 
     if args.scale is not None:
         return _scale_only(args.scale, args.seed, smi)
+    if args.repeat:
+        return _repeat_only(args.seed, smi)
     info = {"phase_s": {}}
 
     def timed(phase: str, fn, *a):
@@ -3653,23 +4008,30 @@ def main() -> int:
         return out
 
     dp_rows, walk_rows, smem = timed("1", phase1_kernels, args.seed)
+    # each cuda = cpu check's CPU side starts as soon as its inputs exist
+    # and runs in a process of its own beside the card's phases: 4b's from
+    # here, 6's after phase 4, 5b's before phase 5, 10's after phase 6
+    cpu_4b = start_cpu_sides_4b()
     launches, info["slice"] = timed("2", phase2_slice, args.seed,
                                     args.profile)
     info["slice"]["eval_alt"] = timed("2b", phase2b_eval_alt)
     timed("3", phase3_cuda_vs_cpu, args.seed)
     info["asm"], kept = timed("4", phase4_asm, args.seed, args.profile)
+    cpu_6 = start_cpu_side_6()
     info["asm_cuda_vs_cpu"] = timed("4b", phase4b_asm_cuda_vs_cpu,
-                                    args.seed, kept)
-    cpu_sides = start_cpu_sides_5b_6()
+                                    args.seed, kept, cpu_4b)
+    cpu_5b = start_cpu_side_5b()
     info["run"] = timed("5", phase5_run_golden, args.profile)
-    info["run_cuda_vs_cpu"] = timed("5b", phase5b_run_cuda_vs_cpu,
-                                    cpu_sides["run"])
-    info["qc_sd"] = timed("6", phase6_qc_sd, args.seed, cpu_sides["qc"])
+    info["run_cuda_vs_cpu"] = timed("5b", phase5b_run_cuda_vs_cpu, cpu_5b)
+    info["qc_sd"] = timed("6", phase6_qc_sd, args.seed, cpu_6)
+    cpu_10 = start_cpu_side_10()
     info["two_ranks"] = timed("7", phase7_two_ranks, args.seed)
     info["noisy"] = timed("8", phase8_noisy_runs)
     with open(SCALE_PIN) as fh:
         pin = json.load(fh)
     info["scale"] = timed("9", phase9_scale_run, pin["scale_args"], pin)
+    info["repeat"] = timed("10", phase10_repeat_runs, smem, args.seed,
+                           cpu_10)
     _log(f"total {time.perf_counter() - t_start:.1f} s; by phase (s) "
          f"{json.dumps(info['phase_s'])}")
 
@@ -3722,6 +4084,11 @@ def main() -> int:
         f"(tools/scale_run_torch.py)",
         {k: scale["kernel_launches"][k] for k in ("banded_dp", "tb_walk")},
         [scale["shapes"]["banded_dp"], scale["shapes"]["tb_walk"]])
+    repeat = info["repeat"]
+    paths["repeat"] = (
+        "run on the repeat-rich sim (tests/test_repeat_rich.py's recipe)",
+        {k: repeat["kernel_launches"][k] for k in ("banded_dp", "tb_walk")},
+        [repeat["shapes"]["banded_dp"], repeat["shapes"]["tb_walk"]])
     path_rows = {tag: (_row_at_top_shape(dp_rows, dp, check),
                        _row_at_top_shape(walk_rows, walk, check))
                  for tag, (_p, _n, (dp, walk)) in paths.items()}
@@ -3733,7 +4100,8 @@ def main() -> int:
         run["new_dp_classes"] = _new_dp_classes(dp_rows, dp, check) \
             + _new_dp_classes(walk_rows, walk, check)
     _log(f"top shapes of qc/asm --sd, of the two ranks' run, of the CLR "
-         f"and ONT runs and of the scale run: {json.dumps(path_rows)}")
+         f"and ONT runs, of the scale run and of the repeat-rich run: "
+         f"{json.dumps(path_rows)}")
 
     warp_rows = [r for r in dp_rows if r["branch"] == "warp"]
     group_rows = [r for r in dp_rows if r["branch"] == "group"]
@@ -3810,6 +4178,7 @@ def main() -> int:
     for dtype, run in info["noisy"].items():
         _add_run_rows(kernels, run, f"run_{dtype.lower()}")
     _add_run_rows(kernels, info["scale"], "scale")
+    _add_run_rows(kernels, info["repeat"], "repeat")
     print(json.dumps(info))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -148,6 +148,24 @@ def test_twin_refuses_a_host_without_cuda(tmp_path, device):
     assert not (tmp_path / "r.json").exists()
 
 
+def test_pin_rows_are_the_recipe_by_length():
+    """The pin's 5 Mb row and its 10 Mb row (under "rows") carry
+    tools/pin_scale_run.py's recipe at their lengths, the arguments
+    chip_smoke.py's `--scale 5` and `--scale 10` run and hold."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import pin_scale_run
+    with open(SCALE_PIN) as fh:
+        pin = json.load(fh)
+    assert pin["scale_args"] == pin_scale_run.row_args("5")
+    assert set(pin["rows"]) == {"10"}
+    row = pin["rows"]["10"]
+    assert row["scale_args"] == pin_scale_run.row_args("10")
+    assert set(row["run"]) == set(RUN_OUT)
+    assert set(row["sim"]) == set(SIM_FILES)
+    assert os.path.exists(os.path.join(
+        REPO, "tests", "data", pin_scale_run.variants_name("10")))
+
+
 @pytest.mark.slow
 def test_scale_run_is_the_pinned_bytes(tmp_path):
     """The twin with `--device cpu` at the pin's arguments (tools/

@@ -8,12 +8,13 @@ output).  SAM text I/O is included for debuggability.
 """
 from __future__ import annotations
 
+import os
 import struct
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from .bgzf import BgzfReader, BgzfWriter
+from .bgzf import _BGZF_EOF, BgzfReader, BgzfWriter
 
 CIGAR_OPS = "MIDNSHP=X"
 _CIGAR_CONSUMES_QUERY = np.array([1, 1, 0, 0, 1, 0, 0, 1, 1], dtype=np.int8)
@@ -313,8 +314,21 @@ class BamScan:
 
 def scan_bam(path: str, n_threads: int = 0) -> BamScan:
     """Native columnar scan (native/bamscan.cpp, parallel inflate); raises
-    ValueError on a malformed file."""
+    ValueError on a malformed file, and on one that does not end with the
+    BGZF EOF block: the native scan stops quietly where a file was cut
+    short of a block (or at a block's end), and would return only the
+    records before the cut."""
     from ..native import get_lib
+    try:
+        with open(path, "rb") as fh:
+            fh.seek(0, os.SEEK_END)
+            if fh.tell() >= len(_BGZF_EOF):
+                fh.seek(-len(_BGZF_EOF), os.SEEK_END)
+            tail = fh.read()
+    except OSError as e:
+        raise ValueError(f"{path}: {e}") from e
+    if tail != _BGZF_EOF:
+        raise ValueError(f"{path}: no BGZF EOF block at the end (truncated)")
     lib = get_lib()
     import ctypes
     res = lib.bam_scan(path.encode(), n_threads)
