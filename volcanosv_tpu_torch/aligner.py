@@ -36,7 +36,7 @@ from .ops.chain import Chain
 from .ops.minimizer import MinimizerIndex
 from .ops.pack import decode_codes, encode_seq, revcomp_codes
 from .io.bam import BamRecord, FREVERSE, FSUPPLEMENTARY
-from .utils.logging import get_logger, stage_timer
+from .utils.logging import count, get_logger, stage_timer
 
 log = get_logger("aligner")
 
@@ -417,6 +417,7 @@ class Aligner:
         # buckets dispatch while later queries are still seeding/chaining)
         pipe = _RefinePipeline(self.scores, self.device)
         with stage_timer("seed_chain", log):
+            count("aligner_queries", len(queries))
             for qname, qc_fwd, chains in self._seed_chain_stream(
                     queries, max_chains_per_query):
                 qlen = len(qc_fwd)

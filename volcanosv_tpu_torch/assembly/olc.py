@@ -30,7 +30,7 @@ import numpy as np
 from ..config import AlignConfig, AssemblyConfig
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..ops.pack import decode_codes, encode_seq, revcomp_seq
-from ..utils.logging import get_logger
+from ..utils.logging import count, get_logger, stage_timer
 
 log = get_logger("assembly")
 
@@ -105,8 +105,10 @@ def _find_overlaps(seqs: list[str], cfg: AssemblyConfig,
     qlens = np.array([len(c) for c in codes], np.int64)
     # fused native path: sketch + index + expansion + segment chaining in
     # one call (ava.cpp)
-    a, b, strand, score, q_s, q_e, t_s, t_e = ava_overlaps_np(
-        get_lib(), codes, acfg)
+    with stage_timer("overlap_native"):
+        a, b, strand, score, q_s, q_e, t_s, t_e = ava_overlaps_np(
+            get_lib(), codes, acfg)
+    count("overlap_hits", len(a))
     for i in range(len(a)):
         _emit_overlap(overlaps, int(a[i]), int(b[i]),
                       int(qlens[a[i]]), int(qlens[b[i]]),
@@ -631,19 +633,22 @@ def consensus_poa_many(items: list[tuple[str, list, object]],
     parts_by_draft: list[list[str | None]] = []
     all_jobs: list[tuple[str, list[tuple[str, float]]]] = []
     job_loc: list[tuple[int, int]] = []
-    for di, (draft, recs, weight_of) in enumerate(items):
-        if len(draft) == 0:
-            parts_by_draft.append([draft])
-            continue
-        parts, jobs = _collect_windows(draft, recs, win, weight_of)
-        ji = 0
-        for wi, p in enumerate(parts):
-            if p is None:
-                job_loc.append((di, wi))
-                ji += 1
-        all_jobs.extend(jobs)
-        parts_by_draft.append(parts)
-    resolved = _resolve_ambiguous(all_jobs, win, max_cands, device)
+    with stage_timer("polish_windows"):
+        for di, (draft, recs, weight_of) in enumerate(items):
+            if len(draft) == 0:
+                parts_by_draft.append([draft])
+                continue
+            parts, jobs = _collect_windows(draft, recs, win, weight_of)
+            ji = 0
+            for wi, p in enumerate(parts):
+                if p is None:
+                    job_loc.append((di, wi))
+                    ji += 1
+            all_jobs.extend(jobs)
+            parts_by_draft.append(parts)
+    count("polish_ambiguous_windows", len(all_jobs))
+    with stage_timer("polish_resolve"):
+        resolved = _resolve_ambiguous(all_jobs, win, max_cands, device)
     for (di, wi), piece in zip(job_loc, resolved):
         parts_by_draft[di][wi] = piece
     return ["".join(p) for p in parts_by_draft]
@@ -670,13 +675,16 @@ def polish_many(drafts: list[str], read_seqs: list[str], acfg: AlignConfig,
     for _ in range(rounds):
         aligner = Aligner({f"d{i}": d for i, d in enumerate(drafts)}, acfg,
                           device=device)
-        recs = aligner.to_bam_records(aligner.align(queries), seq_map)
+        alns = aligner.align(queries)
+        with stage_timer("polish_records"):
+            recs = aligner.to_bam_records(alns, seq_map)
+            idx_of = {n: int(n[1:]) for n in aligner.names}
+            by_draft: dict[int, list] = {}
+            for r in recs:
+                by_draft.setdefault(idx_of[aligner.names[r.ref_id]],
+                                    []).append(r)
         if not recs:
             return drafts
-        idx_of = {n: int(n[1:]) for n in aligner.names}
-        by_draft: dict[int, list] = {}
-        for r in recs:
-            by_draft.setdefault(idx_of[aligner.names[r.ref_id]], []).append(r)
         items = [(d, by_draft.get(i), None) for i, d in enumerate(drafts)
                  if by_draft.get(i)]
         polished = iter(consensus_poa_many(items, device=device))
@@ -734,15 +742,17 @@ def polish_grouped(drafts_by_group: dict[int, list[str]],
                    for gi in sorted(live)
                    for di, d in enumerate(drafts[gi])}
         aligner = Aligner(targets, acfg, device=device)
-        recs = aligner.to_bam_records(aligner.align(queries), seq_map)
-        by_draft: dict[tuple[int, int], list] = {}
-        for r in recs:
-            tname = aligner.names[r.ref_id]
-            g_t, d_t = tname[1:].split("|d")
-            g_r = r.name[1:].split("|r")[0]
-            if g_t != g_r:
-                continue                    # cross-haplotype hit
-            by_draft.setdefault((int(g_t), int(d_t)), []).append(r)
+        alns = aligner.align(queries)
+        with stage_timer("polish_records"):
+            recs = aligner.to_bam_records(alns, seq_map)
+            by_draft: dict[tuple[int, int], list] = {}
+            for r in recs:
+                tname = aligner.names[r.ref_id]
+                g_t, d_t = tname[1:].split("|d")
+                g_r = r.name[1:].split("|r")[0]
+                if g_t != g_r:
+                    continue                    # cross-haplotype hit
+                by_draft.setdefault((int(g_t), int(d_t)), []).append(r)
         def _w_of(name: str) -> float:
             if weights_by_group is None:
                 return 1.0

@@ -18,9 +18,12 @@ files as `volcanosv_tpu.cli`, plus `--device`:
         [--resume] [--device cuda]
 
 `--device` names the torch device the device stages run on (default
-`cuda`); asking for CUDA on a host without it raises.  `--profile_trace
+`cuda`); asking for CUDA on a host without it raises.  `--profile` writes
+the stage table, the command's spans and its work counts into the output
+directory (stage_times.json, spans.json, counts.json).  `--profile_trace
 DIR` writes a torch.profiler trace of the whole command (Chrome/Perfetto
-JSON) into DIR.
+JSON; CUDA activity on a card, else CPU) with the command's spans on the
+trace's clock into DIR.
 
 `vc-large-indel`, `vc-small-indel`, `vc-complex-sv` and `run` also run as
 N ranks of one `torch.distributed` group (torchrun's environment, or
@@ -42,12 +45,14 @@ import argparse
 import functools
 import os
 import sys
+import time
 
 import numpy as np
 
 from .config import PipelineConfig
 from .device import resolve_device
-from .utils.logging import get_logger, stage_timer
+from .utils.logging import (COUNTS, STAGE_TIMES, command_scope, get_logger,
+                            set_tracing, spans_of, stage_report, stage_timer)
 
 log = get_logger("cli")
 
@@ -59,13 +64,14 @@ log = get_logger("cli")
 def _load_reads(args) -> dict[str, str]:
     """Read name → sequence from --fastq or --bam."""
     seqs: dict[str, str] = {}
-    if getattr(args, "fastq", None):
-        from .io.fastq import read_fastq
-        for name, seq, _q in read_fastq(args.fastq):
-            seqs[name] = seq
-    elif getattr(args, "bam", None):
-        from .io.bam import scan_bam
-        return scan_bam(args.bam).read_seqs()   # native parallel inflate
+    with stage_timer("io_read"):
+        if getattr(args, "fastq", None):
+            from .io.fastq import read_fastq
+            for name, seq, _q in read_fastq(args.fastq):
+                seqs[name] = seq
+        elif getattr(args, "bam", None):
+            from .io.bam import scan_bam
+            return scan_bam(args.bam).read_seqs()   # native parallel inflate
     return seqs
 
 
@@ -119,8 +125,9 @@ def _vcf_out(out_dir: str, name: str, ref: dict[str, str], records) -> str:
     from .io.vcf import make_header, write_vcf
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, name)
-    n = write_vcf(path, make_header({c: len(s) for c, s in ref.items()}),
-                  records)
+    with stage_timer("io_write"):
+        n = write_vcf(path, make_header({c: len(s) for c, s in ref.items()}),
+                      records)
     log.info("wrote %d records → %s", n, path)
     return path
 
@@ -141,8 +148,9 @@ def _vcf_out_sharded(out_dir: str, name: str, ref: dict[str, str],
     path = os.path.join(out_dir, name)
     if mp.is_rank0():
         from .io.vcf import merge_vcfs
-        n = merge_vcfs([os.path.join(parts_dir, f"{name}.p{p}.vcf")
-                        for p in range(mp.n_processes())], path)
+        with stage_timer("io_write"):
+            n = merge_vcfs([os.path.join(parts_dir, f"{name}.p{p}.vcf")
+                            for p in range(mp.n_processes())], path)
         log.info("rank 0 merged %d records from %d parts → %s",
                  n, mp.n_processes(), path)
     mp.barrier(f"vcf-merged:{name}")
@@ -275,7 +283,8 @@ def _load_bed(args):
     if not getattr(args, "bed", None):
         return None
     from .io.bed import read_bed
-    return read_bed(args.bed)
+    with stage_timer("io_read"):
+        return read_bed(args.bed)
 
 
 def _restrict_chroms(args, chroms: list[str], bed) -> list[str]:
@@ -328,7 +337,8 @@ def _run_asm(ref, read_seqs, args, device, reads_by_chrom=None):
     bed = {}
     if getattr(args, "hybrid_bed", None):
         from .io.bed import read_bed
-        bed = read_bed(args.hybrid_bed)
+        with stage_timer("io_read"):
+            bed = read_bed(args.hybrid_bed)
     chroms = [args.chrom] if getattr(args, "chrom", None) else list(ref)
     multi = mp.n_processes() > 1
     own = host_chromosome_shard(chroms) if multi else chroms
@@ -392,15 +402,17 @@ def _run_asm(ref, read_seqs, args, device, reads_by_chrom=None):
         # read_hp_og.p-equivalent artifact (prepare_info_v1.py:79-85) —
         # also drives the phase-aware GT downgrade at vc time
         ckpt.save_read_hp(f"read_hp_{chrom}.tsv", hp_of)
-        for r in recs:
-            hp = hp_of.get(r.name)
-            if hp is not None:
-                r.tags = dict(r.tags or {})
-                r.tags["HP"] = hp[0]
-                r.tags["PS"] = hp[1]
-            phased_writer.write(r)
+        with stage_timer("io_write"):
+            for r in recs:
+                hp = hp_of.get(r.name)
+                if hp is not None:
+                    r.tags = dict(r.tags or {})
+                    r.tags["HP"] = hp[0]
+                    r.tags["PS"] = hp[1]
+                phased_writer.write(r)
     if phased_writer is not None:
-        phased_writer.close()
+        with stage_timer("io_write"):
+            phased_writer.close()
     mp.barrier("asm-exchange")
     contigs: dict[str, str] = {}
     snp_records = []
@@ -442,7 +454,8 @@ def cmd_asm(args) -> int:
     from .io.fasta import read_fasta, write_fasta
     device = resolve_device(args.device)
     _pipeline_mesh(device)
-    ref = read_fasta(args.ref)
+    with stage_timer("io_read"):
+        ref = read_fasta(args.ref)
     read_seqs = _load_reads(args)
     if not read_seqs:
         log.error("asm requires --fastq or --bam")
@@ -470,7 +483,8 @@ def cmd_asm(args) -> int:
                                       device=device)
     os.makedirs(args.out_dir, exist_ok=True)
     out = os.path.join(args.out_dir, "final_contigs.fa")
-    write_fasta(out, contigs)
+    with stage_timer("io_write"):
+        write_fasta(out, contigs)
     log.info("assembly: %d contigs → %s", len(contigs), out)
     return 0
 
@@ -484,7 +498,8 @@ def cmd_qc(args) -> int:
     from .qc.flagger import state_names
     device = resolve_device(args.device)
     _pipeline_mesh(device)
-    contigs = read_fasta(args.contig)
+    with stage_timer("io_read"):
+        contigs = read_fasta(args.contig)
     read_seqs = _load_reads(args)
     if not read_seqs:
         log.error("qc requires --fastq or --bam")
@@ -586,8 +601,9 @@ def cmd_vc_large_indel(args) -> int:
     init_multihost()
     device = resolve_device(args.device)
     _pipeline_mesh(device)
-    ref = read_fasta(args.ref)
-    contigs = read_fasta(args.contig)
+    with stage_timer("io_read"):
+        ref = read_fasta(args.ref)
+        contigs = read_fasta(args.contig)
     cfg = PipelineConfig.for_dtype(args.dtype, asm=args.asm)
     bed = _load_bed(args)
     chroms = _restrict_chroms(args, _own_chroms(ref), bed)
@@ -617,8 +633,9 @@ def cmd_vc_small_indel(args) -> int:
     init_multihost()
     device = resolve_device(args.device)
     _pipeline_mesh(device)
-    ref = read_fasta(args.ref)
-    contigs = read_fasta(args.contig)
+    with stage_timer("io_read"):
+        ref = read_fasta(args.ref)
+        contigs = read_fasta(args.contig)
     cfg = PipelineConfig.for_dtype(args.dtype)
     chroms = _restrict_chroms(args, _own_chroms(ref), _load_bed(args))
     with stage_timer("align-contigs", log):
@@ -645,7 +662,8 @@ def _harvest_ins_records(args, ref, contigs, cfg, chroms, device):
     from .io.vcf import read_vcf
     from .vc.large_indel import call_chromosome
     if args.large_vcf:
-        _h, recs = read_vcf(args.large_vcf)
+        with stage_timer("io_read"):
+            _h, recs = read_vcf(args.large_vcf)
         return [r for r in recs if r.svtype == "INS" and r.chrom in chroms]
     by_chrom = _align_by_chrom(ref, contigs, "asm5", device,
                                        args.out_dir, "contigs_asm5",
@@ -674,8 +692,9 @@ def cmd_vc_complex_sv(args) -> int:
     init_multihost()
     device = resolve_device(args.device)
     _pipeline_mesh(device)
-    ref = read_fasta(args.ref)
-    contigs = read_fasta(args.contig)
+    with stage_timer("io_read"):
+        ref = read_fasta(args.ref)
+        contigs = read_fasta(args.contig)
     cfg = PipelineConfig.for_dtype(args.dtype)
     chroms = _restrict_chroms(args, list(ref), _load_bed(args))
     own = [c for c in _own_chroms(ref) if c in chroms]
@@ -713,7 +732,8 @@ def cmd_eval(args) -> int:
 
 def cmd_merge_vcf(args) -> int:
     from .io.vcf import merge_vcfs
-    n = merge_vcfs(args.vcfs, args.out_vcf)
+    with stage_timer("io_write"):
+        n = merge_vcfs(args.vcfs, args.out_vcf)
     log.info("merged %d records → %s", n, args.out_vcf)
     return 0
 
@@ -744,7 +764,8 @@ def cmd_run(args) -> int:
     init_multihost()
     device = resolve_device(args.device)
     _pipeline_mesh(device)
-    ref = read_fasta(args.ref)
+    with stage_timer("io_read"):
+        ref = read_fasta(args.ref)
     read_seqs = _load_reads(args)
     if not read_seqs:
         log.error("run requires --fastq or --bam")
@@ -763,7 +784,9 @@ def cmd_run(args) -> int:
     contigs, snp_records, read_hp_by_chrom = _run_asm(
         ref, read_seqs, args, device, reads_by_chrom=reads_by_chrom)
     if mp.is_rank0():
-        write_fasta(os.path.join(args.out_dir, "final_contigs.fa"), contigs)
+        with stage_timer("io_write"):
+            write_fasta(os.path.join(args.out_dir, "final_contigs.fa"),
+                        contigs)
         _vcf_out(args.out_dir, "phased_snps.vcf", ref, snp_records)
     log.info("assembly: %d contigs", len(contigs))
 
@@ -831,7 +854,8 @@ def cmd_run(args) -> int:
                                ref, large_mine)
     out = os.path.join(args.out_dir, "volcanosv_variants.vcf")
     if mp.is_rank0():
-        n = merge_vcfs([p_large, p_small, p_cx], out)
+        with stage_timer("io_write"):
+            n = merge_vcfs([p_large, p_small, p_cx], out)
         log.info("FINAL: %d variants → %s", n, out)
     mp.barrier("run-final")
     return 0
@@ -871,11 +895,13 @@ def _add_common(p, contig: bool) -> None:
                    help="reuse per-stage artifacts from "
                         "<out_dir>/checkpoints/ (skip-list resume)")
     p.add_argument("--profile", action="store_true",
-                   help="write <out_dir>/stage_times.json + print the "
-                        "per-stage wall-clock table")
+                   help="write <out_dir>/stage_times.json, spans.json "
+                        "(the command's spans) and counts.json (its work "
+                        "counts) + print the per-stage wall-clock table")
     p.add_argument("--profile_trace", metavar="DIR",
                    help="capture a torch.profiler trace (Chrome/Perfetto "
-                        "JSON) of the whole command into DIR")
+                        "JSON; CUDA activity on a card, else CPU) of the "
+                        "whole command, with its spans, into DIR")
     _add_device(p)
 
 
@@ -966,35 +992,118 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _profiled(fn, args, trace_dir: str) -> int:
-    """fn(args) under torch.profiler (CPU, plus CUDA where a card is
-    present); the trace goes to <trace_dir>/trace.json."""
+_ANCHOR = "volcanosv_clock_anchor"
+
+
+def _profiled(fn, args, trace_dir: str, command: int) -> int:
+    """fn(args) under torch.profiler; the trace goes to
+    <trace_dir>/trace.json with the command's spans beside the profiler's
+    events, on the profiler's clock.  On a card the profiler records CUDA
+    activity only, else CPU activity.  The clocks are tied by an anchor
+    whose perf_counter time is read just before it starts: on a card a
+    spin kernel launched after a synchronise, else a record_function
+    range."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-    with profile(activities=acts) as prof:
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cuda = torch.cuda.is_available()
+    with profile(activities=[ProfilerActivity.CUDA] if cuda
+                 else [ProfilerActivity.CPU]) as prof:
+        if cuda:
+            torch.cuda.synchronize()
+            anchor = time.perf_counter()
+            torch.cuda._sleep(1000)
+        else:
+            anchor = time.perf_counter()
+            with record_function(_ANCHOR):
+                pass
+        t0 = time.perf_counter()
         rc = fn(args)
+        t1 = time.perf_counter()
+        if cuda:
+            torch.cuda.synchronize()
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir, "trace.json")
     prof.export_chrome_trace(path)
+    _add_spans(path, "spin_kernel" if cuda else _ANCHOR, anchor,
+               [dict(name=args.cmd, start=t0, end=t1, parent=None,
+                     command=command)] + spans_of(command))
     log.info("profiler trace → %s", path)
     return rc
+
+
+def _add_spans(path: str, anchor_name: str, anchor: float,
+               spans: list[dict]) -> None:
+    """Write `spans` (perf_counter seconds) into the Chrome trace at
+    `path` as complete events of one track, tied to the trace's clock by
+    the first event whose name holds `anchor_name`, which began at
+    perf_counter time `anchor`."""
+    import json
+    with open(path) as fh:
+        trace = json.load(fh)
+    events = trace["traceEvents"]
+    anchors = [float(e["ts"]) for e in events
+               if e.get("ph") == "X" and anchor_name in str(e.get("name"))]
+    if not anchors:
+        raise RuntimeError(f"no {anchor_name} event in {path}: the spans "
+                           "cannot be tied to the trace's clock")
+    ts0 = min(anchors)
+    pid, tid = os.getpid(), 0
+    events.append(dict(ph="M", name="thread_name", pid=pid, tid=tid,
+                       args=dict(name="volcanosv_tpu_torch spans")))
+    for sp in spans:
+        if sp["end"] is None:
+            continue
+        events.append(dict(
+            ph="X", cat="program_span", name=sp["name"], pid=pid, tid=tid,
+            ts=ts0 + (sp["start"] - anchor) * 1e6,
+            dur=(sp["end"] - sp["start"]) * 1e6,
+            args=dict(parent=sp["parent"], command=sp["command"])))
+    with open(path, "w") as fh:
+        json.dump(trace, fh)
+
+
+def _write_profile(out_dir: str, name: str, command: int, t0: float,
+                   t1: float, counts_before: dict[str, int]) -> None:
+    """<out_dir>/stage_times.json (the process's stage table),
+    spans.json (this command's spans) and counts.json (the counters'
+    change over the command)."""
+    import json
+    os.makedirs(out_dir, exist_ok=True)
+    files = {
+        "stage_times.json": {k: {"total_s": round(v[0], 4), "calls": v[1]}
+                             for k, v in STAGE_TIMES.items()},
+        "spans.json": dict(command=dict(id=command, name=name, start=t0,
+                                        end=t1),
+                           spans=spans_of(command)),
+        "counts.json": {k: v - counts_before.get(k, 0)
+                        for k, v in COUNTS.items()},
+    }
+    for fname, obj in files.items():
+        with open(os.path.join(out_dir, fname), "w") as fh:
+            json.dump(obj, fh, indent=1)
+    log.info("profile:\n%s\n→ %s", stage_report(),
+             os.path.join(out_dir, "stage_times.json"))
 
 
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     trace_dir = getattr(args, "profile_trace", None)
-    rc = _profiled(args.fn, args, trace_dir) if trace_dir else args.fn(args)
-    if getattr(args, "profile", False) and getattr(args, "out_dir", None):
-        import json
-        from .utils.logging import STAGE_TIMES, stage_report
-        path = os.path.join(args.out_dir, "stage_times.json")
-        os.makedirs(args.out_dir, exist_ok=True)
-        with open(path, "w") as fh:
-            json.dump({k: {"total_s": round(v[0], 4), "calls": v[1]}
-                       for k, v in STAGE_TIMES.items()}, fh, indent=1)
-        log.info("profile:\n%s\n→ %s", stage_report(), path)
+    profile = getattr(args, "profile", False) and getattr(args, "out_dir",
+                                                          None)
+    counts_before = dict(COUNTS)
+    was_tracing = set_tracing(True) if trace_dir or profile else None
+    try:
+        with command_scope() as command:
+            t0 = time.perf_counter()
+            rc = (_profiled(args.fn, args, trace_dir, command) if trace_dir
+                  else args.fn(args))
+            t1 = time.perf_counter()
+    finally:
+        if was_tracing is not None:
+            set_tracing(was_tracing)
+    if profile:
+        _write_profile(args.out_dir, args.cmd, command, t0, t1,
+                       counts_before)
     return rc
 
 

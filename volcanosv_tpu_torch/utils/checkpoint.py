@@ -17,7 +17,7 @@ import tempfile
 from ..io.fasta import read_fasta, write_fasta
 from ..io.vcf import VcfRecord, make_header, read_vcf, write_vcf
 from ..vc.signatures import Signature
-from .logging import get_logger
+from .logging import get_logger, stage_timer
 
 log = get_logger("checkpoint")
 
@@ -50,14 +50,15 @@ class CheckpointDir:
     def _atomic(self, name: str, write_fn) -> None:
         if not self.enabled:
             return
-        fd, tmp = tempfile.mkstemp(dir=self.base, prefix=name + ".")
-        os.close(fd)
-        try:
-            write_fn(tmp)
-            os.replace(tmp, self.path(name))
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        with stage_timer("io_write"):
+            fd, tmp = tempfile.mkstemp(dir=self.base, prefix=name + ".")
+            os.close(fd)
+            try:
+                write_fn(tmp)
+                os.replace(tmp, self.path(name))
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
 
     # FASTA (per-chromosome assembled contigs — the log.txt skip unit)
     def save_fasta(self, name: str, contigs: dict[str, str]) -> None:

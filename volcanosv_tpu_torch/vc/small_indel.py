@@ -24,7 +24,7 @@ from ..config import PipelineConfig, SmallIndelConfig
 from ..io.bam import BamRecord
 from ..io.vcf import VcfRecord
 from ..ops.pack import encode_seq
-from ..utils.logging import get_logger
+from ..utils.logging import get_logger, stage_timer
 from ..ops.kmer import kmer_hashes_np
 from .large_indel import phase_records
 
@@ -357,6 +357,41 @@ def kmer_support_filter(records: list[VcfRecord],
     return kept
 
 
+def _read_indel_events(reads_records: list[BamRecord] | None):
+    """Every primary read's indel events sorted by reference position:
+    (positions, lengths, is-deletion, read index, read names); the arrays
+    are None when there are no reads or no events."""
+    ev_names: list[str] = []
+    if reads_records is None:
+        return None, None, None, None, ev_names
+    ev_p, ev_l, ev_d, ev_n = [], [], [], []
+    for rec in reads_records:
+        if rec.is_unmapped or rec.is_secondary or rec.is_supplementary:
+            continue
+        cig = np.asarray(rec.cigar)
+        if len(cig) == 0:
+            continue
+        ops, lens = cig[:, 0], cig[:, 1].astype(np.int64)
+        cr = np.isin(ops, (_M, _D, _EQ, _X)) * lens
+        r0s = rec.pos + np.concatenate([[0], np.cumsum(cr)[:-1]])
+        ind = np.isin(ops, (_I, _D)) & (lens > 0)
+        if not ind.any():
+            continue
+        ev_p.append(r0s[ind])
+        ev_l.append(lens[ind])
+        ev_d.append(ops[ind] == _D)
+        ev_n.append(np.full(int(ind.sum()), len(ev_names), np.int64))
+        ev_names.append(rec.name)
+    if not ev_p:
+        return None, None, None, None, ev_names
+    ep = np.concatenate(ev_p)
+    el = np.concatenate(ev_l)
+    ed = np.concatenate(ev_d)
+    en = np.concatenate(ev_n)
+    order = np.argsort(ep, kind="stable")
+    return ep[order], el[order], ed[order], en[order], ev_names
+
+
 def call_small_indels(
     chrom: str,
     contig_records: list[BamRecord],
@@ -370,36 +405,6 @@ def call_small_indels(
     volcanosv-vc-small-indel.py main).  read_hp (read → haplotype) enables
     phase-aware 1|1→het arbitration like the large path."""
     sic = cfg.small_indel
-    h1, cov1, tie1 = extract_hap_variants(contig_records, ref_seq, "hp1", sic)
-    h2, cov2, tie2 = extract_hap_variants(contig_records, ref_seq, "hp2", sic)
-    ep = el = ed = None
-    ev_names: list[str] = []
-    if reads_records is not None:
-        ev_p, ev_l, ev_d, ev_n = [], [], [], []
-        for rec in reads_records:
-            if rec.is_unmapped or rec.is_secondary or rec.is_supplementary:
-                continue
-            cig = np.asarray(rec.cigar)
-            if len(cig) == 0:
-                continue
-            ops, lens = cig[:, 0], cig[:, 1].astype(np.int64)
-            cr = np.isin(ops, (_M, _D, _EQ, _X)) * lens
-            r0s = rec.pos + np.concatenate([[0], np.cumsum(cr)[:-1]])
-            ind = np.isin(ops, (_I, _D)) & (lens > 0)
-            if not ind.any():
-                continue
-            ev_p.append(r0s[ind])
-            ev_l.append(lens[ind])
-            ev_d.append(ops[ind] == _D)
-            ev_n.append(np.full(int(ind.sum()), len(ev_names), np.int64))
-            ev_names.append(rec.name)
-        if ev_p:
-            ep = np.concatenate(ev_p)
-            el = np.concatenate(ev_l)
-            ed = np.concatenate(ev_d)
-            en = np.concatenate(ev_n)
-            order = np.argsort(ep, kind="stable")
-            ep, el, ed, en = ep[order], el[order], ed[order], en[order]
 
     def _event_window(pos: int, kind: str, sz: int):
         lo = int(np.searchsorted(ep, pos - 20))
@@ -409,19 +414,27 @@ def call_small_indels(
              (np.minimum(sl, sz) / np.maximum(sl, sz) >= 0.5)
         return ok, lo
 
-    if ep is not None and (tie1 or tie2):
-        # arbitrate 50/50 contig splits with read-level indel events: a
-        # real het indel has carrier reads; a consensus artifact does not
-        for ties, h in ((tie1, h1), (tie2, h2)):
-            for key, v in ties.items():
-                ok, _lo = _event_window(key[0], key[1], v.indel_size)
-                if int(ok.sum()) >= 3:
-                    h[key] = v
-    log.info("%s: %d hp1 variants, %d hp2 variants", chrom, len(h1), len(h2))
-    records = pair_hap_variants(chrom, h1, h2, cov1, cov2)
-    records = size_filter(records, sic, keep_snps=keep_snps)
+    with stage_timer("small_indel_extract"):
+        h1, cov1, tie1 = extract_hap_variants(contig_records, ref_seq, "hp1",
+                                              sic)
+        h2, cov2, tie2 = extract_hap_variants(contig_records, ref_seq, "hp2",
+                                              sic)
+        ep, el, ed, en, ev_names = _read_indel_events(reads_records)
+        if ep is not None and (tie1 or tie2):
+            # arbitrate 50/50 contig splits with read-level indel events: a
+            # real het indel has carrier reads; a consensus artifact does not
+            for ties, h in ((tie1, h1), (tie2, h2)):
+                for key, v in ties.items():
+                    ok, _lo = _event_window(key[0], key[1], v.indel_size)
+                    if int(ok.sum()) >= 3:
+                        h[key] = v
+        log.info("%s: %d hp1 variants, %d hp2 variants", chrom, len(h1),
+                 len(h2))
+        records = pair_hap_variants(chrom, h1, h2, cov1, cov2)
+        records = size_filter(records, sic, keep_snps=keep_snps)
     if reads_records is not None:
-        records = kmer_support_filter(records, reads_records, sic)
+        with stage_timer("small_indel_filter"):
+            records = kmer_support_filter(records, reads_records, sic)
     if ep is not None and read_hp:
         # phase-aware GT arbitration (mirrors vc.gt_correction.
         # phase_aware_gt at small-indel scale): a 1|1 whose phased carrier
