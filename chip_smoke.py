@@ -119,6 +119,16 @@ Phase 4b `asm` with `--device cuda` and with `--device cpu` on the
          layout and a 120 kb read in a 2^17-column chunk, whose unique
          windows overflow the vote's shared memory; the count on poly-A,
          poly-T and all-N chunks into a table that holds counts.
+Phase 4c the all-vs-all overlap pass (csrc/ava.cu, ops/overlap.py)
+         against native/ava.cpp on the host: its eight columns equal on
+         the run cell's read group (a 250 kb haplotype at 14x, 13.5 kb
+         reads at 0.2% error), at CLR and ONT error, on a repeat-rich
+         group and on a tandem array; at the run cell's group the kernels'
+         device time beside the bound, the whole call (host sketch and
+         index included) and ava.cpp on the host's threads in turns, and
+         the plain version on the card, whose columns must equal them
+         too.  Every later `run` and `asm` must
+         launch the pass (`ava_overlaps` in the launch counts).
 Phase 5  `run --device cuda` (reads -> asm -> the large-indel, small-indel
          and complex-SV callers -> merged VCF) on the golden recipe of
          tests/test_golden_e2e.py (4 x 250 kb, every SV type, a
@@ -300,6 +310,7 @@ import atexit
 import contextlib
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -767,7 +778,8 @@ def _profile_summary(prof, wall_s: float) -> dict:
     summed device time and its share of the wall time, the time of
     PyTorch's indexing kernels (names holding "index": `index_add_`, the
     gathers) with their names, and the pair-HMM's, the k-mer kernels' and
-    the MEC kernels' time, launches and time a launch (`focus`)."""
+    the MEC kernels' and the overlap pass's time, launches and time a
+    launch (`focus`)."""
     by_name = {}
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -784,7 +796,7 @@ def _profile_summary(prof, wall_s: float) -> dict:
     focus = {k[:120]: dict(ms=v[0], count=v[1], ms_per_launch=v[0] / v[1])
              for k, v in by_name.items()
              if "pairhmm" in k or "kmer_" in k or "unique_mask" in k
-             or "mec_" in k}
+             or "mec_" in k or "ava_" in k}
     return dict(busy_ms=busy, wall_s=wall_s,
                 busy_share=busy / (wall_s * 1e3),
                 index_ms=sum(index.values()), index_kernels=index,
@@ -1040,7 +1052,8 @@ def phase4_asm(seed: int, profile: bool):
     stages = {k: round(v[0], 3) for k, v in STAGE_TIMES.items()}
     if rc != 0:
         raise AssertionError(f"asm exited {rc}")
-    for name in ("banded_dp", "tb_walk", "mec_phase") + KMER_KERNELS:
+    for name in ("banded_dp", "tb_walk", "mec_phase",
+                 "ava_overlaps") + KMER_KERNELS:
         if kernel_launches[name] <= 0:
             raise AssertionError(f"{name} never launched during asm")
     _log(f"phase 4: asm {asm_s:.1f} s, launches {kernel_launches}, "
@@ -2163,6 +2176,190 @@ ASM_CASES = (("hifi", "Hifi", 0.001, 80_000, "asm_cuda_vs_cpu"),
              ("ont", "ONT", 0.06, NOISY_ASM_LENGTH, "asm_ont_cuda_vs_cpu"))
 
 
+def _ava_group(seed, hap_len=250_000, coverage=14.0, read_len=13_500,
+               read_sd=3_000, err=0.002, repeats=0, tandem=0, min_len=200):
+    """tests/torch_inputs.py::ava_group, copied since the smoke run imports
+    no tests: one haplotype's reads as 2-bit code arrays (a random
+    haplotype, optionally with spread and tandem repeats; reads at random
+    starts, half reverse-complemented, substitutions at err / 2 and 1-3 bp
+    insertions and deletions at err / 4 each a base)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    hap = rng.integers(0, 4, hap_len).astype(np.int8)
+    if repeats:
+        unit = rng.integers(0, 4, 2000).astype(np.int8)
+        short = rng.integers(0, 4, 40).astype(np.int8)
+        for at in rng.integers(0, hap_len - 2000, repeats):
+            hap[at:at + 2000] = unit
+        for at in rng.integers(0, hap_len - 40, 300):
+            hap[at:at + 40] = short
+    if tandem:
+        unit = rng.integers(0, 4, 1000).astype(np.int8)
+        at = hap_len // 3
+        hap[at:at + 1000 * tandem] = np.tile(unit, tandem)
+    n = max(1, int(round(coverage * hap_len / read_len)))
+    reads = []
+    for _ in range(n):
+        L = int(np.clip(rng.normal(read_len, read_sd), min_len, hap_len))
+        s = int(rng.integers(0, hap_len - L + 1))
+        r = hap[s:s + L]
+        u = rng.random(L)
+        sub = u < err / 2
+        ins = (u >= err / 2) & (u < 3 * err / 4)
+        dele = (u >= 3 * err / 4) & (u < err)
+        r = np.where(sub, (r + rng.integers(1, 4, L)) % 4, r).astype(np.int8)
+        parts, last = [], 0
+        for i in np.nonzero(ins | dele)[0]:
+            parts.append(r[last:i])
+            size = int(rng.integers(1, 4))
+            if ins[i]:
+                parts.append(rng.integers(0, 4, size).astype(np.int8))
+                last = i
+            else:
+                last = min(L, i + size)
+        parts.append(r[last:])
+        r = np.concatenate(parts).astype(np.int8)
+        if rng.random() < 0.5:
+            r = (3 - r[::-1]).astype(np.int8)
+        reads.append(np.ascontiguousarray(r))
+    return reads
+
+
+# the overlap pass's cases, (name, _ava_group arguments): the run cell's
+# read group (svbench's hifi-28x: one haplotype of a 250 kb job, 14x, 13.5
+# kb reads at 0.2% error) first, then CLR and ONT error, a repeat-rich
+# group (the 64-hit cap and the occurrence filter) and a tandem array
+# (segments sorted in device memory)
+AVA_CASES = (
+    ("run_group", dict(err=0.002)),
+    ("clr", dict(err=0.1)),
+    ("ont", dict(err=0.05)),
+    ("repeats", dict(err=0.002, repeats=30)),
+    ("tandem", dict(hap_len=60_000, coverage=6.0, read_len=12_000,
+                    read_sd=500, tandem=20)),
+)
+# int32 operations of one predecessor test of the chain DP (chain.cpp's
+# loop body): dt, dq and the gap (3), the four range tests and the band
+# test (5), min(dq, dt, k) (2), the score's add and subtract (2), the
+# compare with the best (1); the cost table read is no operation
+AVA_TEST_OPS = 13
+
+
+def _ava_bound(shape, n_idx: int, n_ov: int) -> dict:
+    """The pass's least time: the minimizers and the index entries read
+    once (13 bytes each: hash, read, pos, strand), the eight columns
+    written once (45 bytes an overlap); 16 predecessor tests an anchor."""
+    n_reads, n_min, n_anchors, _chunks, _past = shape
+    return _bound(13 * (n_min + n_idx) + 45 * n_ov,
+                  n_anchors * 16 * AVA_TEST_OPS)
+
+
+def _ava_device_ms(fn) -> tuple[float, dict]:
+    """The pass's kernels' device time (ms) in one call of `fn`, from a
+    torch.profiler trace, and the time by kernel."""
+    import torch
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.key_averages():
+        if "ava_" in e.key:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            name = re.search(r"ava_\w*?kernel", e.key)
+            name = name.group(0) if name else e.key[:60]
+            by[name] = by.get(name, 0.0) + us / 1e3
+    return sum(by.values()), by
+
+
+def _ava_columns_err(got, want) -> float:
+    """The largest |score| difference of two sets of ava_overlaps columns
+    (inf where any column differs in dtype, length or value)."""
+    import numpy as np
+    if any(g.dtype != w.dtype or not np.array_equal(g, w)
+           for g, w in zip(got, want)):
+        return float("inf")
+    return float(np.abs(got[3].astype(np.float64) - want[3]).max()) \
+        if len(want[3]) else 0.0
+
+
+def phase4c_overlap_pass(seed: int) -> dict:
+    """The all-vs-all overlap pass (csrc/ava.cu) against ava.cpp on the
+    host on AVA_CASES: the eight columns equal; at the run cell's group,
+    the plain version on the card equals them too, and the pass is timed
+    (its kernels' device time beside the bound, the whole call with its
+    host sketch and index, ava.cpp on the host's threads and the plain
+    version on the card, in turns)."""
+    import numpy as np
+    import torch
+
+    from volcanosv_tpu_torch import native
+    from volcanosv_tpu_torch.config import AlignConfig
+    from volcanosv_tpu_torch.ops import overlap
+    acfg = AlignConfig.preset("ava")
+    lib = native.get_lib()
+    dev = torch.device("cuda")
+    rows = []
+    for i, (name, args) in enumerate(AVA_CASES):
+        reads = _ava_group(seed + 500 + i, **args)
+        want = native.ava_overlaps_np(lib, reads, acfg)
+        got = overlap.ava_overlaps(reads, acfg, dev)
+        torch.cuda.synchronize()
+        err = _ava_columns_err(got, want)
+        if err != 0:
+            raise AssertionError(f"phase 4c: the pass != ava.cpp at {name}")
+        shape = overlap.ava_overlaps.shapes[-1]
+        with native.ava_index_views(lib, reads, acfg.k, acfg.w) as ix:
+            n_idx = len(ix["idx_hash"])
+        row = dict(name=name, reads=shape[0], minimizers=shape[1],
+                   index=n_idx, anchors=shape[2], chunks=shape[3],
+                   past_smem=shape[4], overlaps=len(want[0]),
+                   max_abs_err=err)
+        if i == 0:
+            def card():
+                overlap.ava_overlaps(reads, acfg, dev)
+                torch.cuda.synchronize()
+
+            def host():
+                native.ava_overlaps_np(lib, reads, acfg)
+
+            def plain():
+                cols, _stats = overlap._ava_pass(
+                    reads, acfg, dev, True, overlap.MAX_ANCHORS,
+                    overlap.MAX_SEGMENTS)
+                torch.cuda.synchronize()
+                return cols
+            card()
+            turns = {"card": [], "host": []}
+            for fn in (card, host, host, card, card, host, host, card):
+                t0 = time.perf_counter()
+                fn()
+                turns["card" if fn is card else "host"].append(
+                    (time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            plain_cols = plain()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            plain_err = _ava_columns_err(plain_cols, want)
+            if plain_err != 0:
+                raise AssertionError(
+                    f"phase 4c: the plain version on the card != ava.cpp "
+                    f"at {name}")
+            ms, by_kernel = _ava_device_ms(card)
+            row.update(ms=ms, by_kernel=by_kernel,
+                       pass_ms=statistics.median(turns["card"]),
+                       host_ms=statistics.median(turns["host"]),
+                       turns_ms=turns, plain_ms=plain_ms,
+                       plain_max_abs_err=plain_err,
+                       **_ava_bound(shape, n_idx, len(want[0])))
+            row["share"] = row["bound_ms"] / ms
+        rows.append(row)
+        _log(f"phase 4c: {json.dumps(row)}")
+    return dict(rows=rows, host_threads=os.cpu_count())
+
+
 def start_cpu_sides_4b() -> dict:
     """Phase 4b's three `asm` cases written, and their CPU sides started
     (`_start_cpu_cli`); they need nothing of the card, so the whole run
@@ -2465,7 +2662,7 @@ def phase5_run_golden(profile: bool) -> dict:
                 "tb_walk": ba.tb_walk.launches,
                 "pairhmm_viterbi": kernel_launches["pairhmm_viterbi"]}
     launches.update({k: kernel_launches[k]
-                     for k in KMER_KERNELS + ("mec_phase",)})
+                     for k in KMER_KERNELS + ("mec_phase", "ava_overlaps")})
     dp_shapes = _dp_shapes(ba.banded_dp.shapes)
     walk_shapes = _walk_shapes(ba.tb_walk.shapes)
     kmer_shapes = _kmer_shapes()
@@ -3268,7 +3465,7 @@ def _noisy_run(dtype: str, err: float, floors, pin: dict) -> dict:
         raise AssertionError(f"{tag} exited {rc}")
     pinned = _check_pin(pin, sim_args, sim_dir, out, os.path.join(
         REPO, "tests", "data", f"golden_dtype_{dtype}_variants.vcf"), tag)
-    for name in ("pairhmm_viterbi", "mec_phase"):
+    for name in ("pairhmm_viterbi", "mec_phase", "ava_overlaps"):
         if kernel_launches[name] <= 0:
             raise AssertionError(f"{tag}: {name} never launched")
     _log(f"{tag}: the sim's inputs and run's six outputs are the JAX "
@@ -3588,7 +3785,7 @@ def phase9_scale_run(args: list[str], pin,
         _log(f"{tag}: the sim's inputs and run's six outputs are the JAX "
              f"package's pinned bytes {json.dumps(pinned)}")
     for name in ("banded_dp", "tb_walk", "pairhmm_viterbi", "mec_phase",
-                 *KMER_KERNELS):
+                 "ava_overlaps", *KMER_KERNELS):
         if kernel_launches[name] <= 0:
             raise AssertionError(f"{tag}: {name} never launched")
     acc = report["accuracy"]
@@ -3857,7 +4054,7 @@ def phase10_repeat_runs(smem: dict, seed: int, cpu_proc) -> dict:
     out = os.path.join(d, "fastq")
     pinned = {"fastq": _repeat_pinned(pin, "fastq", sim_dir, out, tag)}
     for name in ("banded_dp", "tb_walk", "pairhmm_viterbi", "mec_phase",
-                 *KMER_KERNELS):
+                 "ava_overlaps", *KMER_KERNELS):
         if kernel_launches[name] <= 0:
             raise AssertionError(f"{tag}: {name} never launched")
     profile_info = _profile_summary(prof, run_s)
@@ -4020,6 +4217,7 @@ def main() -> int:
     cpu_6 = start_cpu_side_6()
     info["asm_cuda_vs_cpu"] = timed("4b", phase4b_asm_cuda_vs_cpu,
                                     args.seed, kept, cpu_4b)
+    info["overlap"] = timed("4c", phase4c_overlap_pass, args.seed)
     cpu_5b = start_cpu_side_5b()
     info["run"] = timed("5", phase5_run_golden, args.profile)
     info["run_cuda_vs_cpu"] = timed("5b", phase5b_run_cuda_vs_cpu, cpu_5b)
@@ -4172,6 +4370,19 @@ def main() -> int:
             ms=walk["ms"], plain_ms=walk["plain_ms"],
             bound_ms=walk["bound_ms"], bound_by=walk["bound_by"],
             library_ms=None, shapes=[walk]))
+    ov = info["overlap"]["rows"][0]
+    kernels.append(dict(
+        name="ava_overlaps", route="cuda",
+        source="volcanosv_tpu_torch/csrc/ava.cu",
+        replaces="no TPU kernel: volcanosv_tpu/native/ava.cpp on the host",
+        launches=info["run"]["kernel_launches"]["ava_overlaps"],
+        launches_asm=info["asm"]["kernel_launches"]["ava_overlaps"],
+        max_abs_err=max(max(r["max_abs_err"], r.get("plain_max_abs_err", 0))
+                        for r in info["overlap"]["rows"]),
+        ms=ov["ms"], pass_ms=ov["pass_ms"],
+        host_ms=ov["host_ms"], plain_ms=ov["plain_ms"],
+        bound_ms=ov["bound_ms"], bound_by=ov["bound_by"], library_ms=None,
+        shapes=info["overlap"]["rows"]))
     kernels += _scan_kernel_entries(info, rng)
     kernels += _kmer_kernel_entries(info)
     kernels += _mec_kernel_entries(info)

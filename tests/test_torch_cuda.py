@@ -56,20 +56,29 @@ canonical_hashes' kernel (csrc/kmer.cu) equals its plain version at k 1,
 12 and 16 on random int32 hashes.
 
 The k-mer ops the kernels replaced run the same ops on the card as on
-the CPU: their outputs on the card equal the CPU's."""
+the CPU: their outputs on the card equal the CPU's.
+
+The all-vs-all overlap pass (csrc/ava.cu, wrapped by ops/overlap.py) is
+held to native/ava.cpp's ava_overlaps, its eight columns bit for bit, on
+a 250 kb haplotype at 14x with 13.5 kb reads at HiFi, CLR and ONT error,
+on a repeat-rich group (the 64-hit cap and the occurrence filter), on a
+tandem array whose segments pass shared memory's reach, across query
+chunks and on a one-read group; `.launches` counts each pass, and a `run`
+on the card counts its read groups in `overlap_device_groups` and equals
+the CPU's `run`."""
 import numpy as np
 import pytest
 import torch
 
 from volcanosv_tpu_torch.ops import banded_align as ba
-from volcanosv_tpu_torch.ops import kmer
+from volcanosv_tpu_torch.ops import kmer, overlap
 from volcanosv_tpu_torch.phasing import phase, realign
 from volcanosv_tpu_torch.qc import flagger
-from torch_inputs import (MEC_EDGES, VITERBI_EDGES, hmm_tie_case,
-                          kmer_count_case, kmer_tile_case, kmer_vote_case,
-                          mec_case, mec_edge_case, mec_restart_mecs,
-                          viterbi_edge_case, viterbi_mixed_case,
-                          viterbi_pairs)
+from torch_inputs import (MEC_EDGES, VITERBI_EDGES, ava_group,
+                          hmm_tie_case, kmer_count_case, kmer_tile_case,
+                          kmer_vote_case, mec_case, mec_edge_case,
+                          mec_restart_mecs, viterbi_edge_case,
+                          viterbi_mixed_case, viterbi_pairs)
 
 DUAL = ba.Scores(match=2, mismatch=-4, gap_open=-4, gap_extend=-2,
                  gap_open2=-24, gap_extend2=-1)
@@ -1119,3 +1128,99 @@ def test_pairing_edit_distances_match_plain(cuda, M):
     want = edit_distance_pairs(pairs, clip_to=10, device="cpu")
     np.testing.assert_array_equal(got, want)
     assert (got <= 10).any() and (got > 10).any()
+
+
+AVA_GROUP = dict(hap_len=250_000, coverage=14.0, read_len=13_500,
+                 read_sd=3_000)
+# (seed, ava_group arguments, the pass's budgets)
+AVA_CASES = {
+    "hifi_250kb": (41, dict(AVA_GROUP, err=0.002), {}),
+    "clr": (42, dict(AVA_GROUP, err=0.1), {}),
+    "ont": (43, dict(AVA_GROUP, err=0.05), {}),
+    "repeats": (44, dict(AVA_GROUP, err=0.002, repeats=30), {}),
+    "tandem": (45, dict(hap_len=60_000, coverage=6.0, read_len=12_000,
+                        read_sd=500, tandem=20), {}),
+    "chunked": (46, dict(AVA_GROUP, err=0.002),
+                dict(max_anchors=2_000_000, max_segments=60 * 259 * 2)),
+    "one_read": (47, dict(hap_len=20_000, coverage=1.0, read_len=4_000,
+                          read_sd=10), {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(AVA_CASES))
+def test_ava_kernel_matches_ava_cpp(cuda, name):
+    from volcanosv_tpu_torch import native
+    from volcanosv_tpu_torch.config import AlignConfig
+    seed, args, budgets = AVA_CASES[name]
+    reads = ava_group(seed, **args)
+    if name == "one_read":
+        reads = reads[:1]
+    acfg = AlignConfig.preset("ava")
+    want = native.ava_overlaps_np(native.get_lib(), reads, acfg)
+    before = overlap.ava_overlaps.launches
+    got = overlap.ava_overlaps(reads, acfg, cuda, **budgets)
+    torch.cuda.synchronize()
+    assert overlap.ava_overlaps.launches == before + 1
+    n_reads, _n_min, n_anchors, chunks, past_smem = \
+        overlap.ava_overlaps.shapes[-1]
+    assert n_reads == len(reads)
+    for col, g, w in zip(overlap._COLS, got, want):
+        assert g.dtype == w.dtype, col
+        np.testing.assert_array_equal(g, w, err_msg=col)
+    if name == "one_read":
+        assert len(want[0]) == 0
+    else:
+        assert len(want[0]) > 300 and n_anchors > 10**5
+    assert (chunks > 1) == (name == "chunked")
+    assert (past_smem > 0) == (name == "tandem")
+
+
+@pytest.mark.cuda
+def test_ava_pass_without_minimizers_launches_nothing(cuda):
+    """A group whose reads are all shorter than k + w has no minimizers:
+    the pass gives no overlaps and launches no kernel, so `.launches`
+    stays where it was."""
+    from volcanosv_tpu_torch import native
+    from volcanosv_tpu_torch.config import AlignConfig
+    acfg = AlignConfig.preset("ava")
+    rng = np.random.default_rng(48)
+    reads = [rng.integers(0, 4, L).astype(np.int8) for L in (0, 10, 18, 18)]
+    want = native.ava_overlaps_np(native.get_lib(), reads, acfg)
+    before = overlap.ava_overlaps.launches
+    got = overlap.ava_overlaps(reads, acfg, cuda)
+    torch.cuda.synchronize()
+    assert overlap.ava_overlaps.launches == before
+    assert overlap.ava_overlaps.shapes[-1][:3] == (len(reads), 0, 0)
+    for col, g, w in zip(overlap._COLS, got, want):
+        assert g.dtype == w.dtype and len(g) == len(w) == 0, col
+
+
+@pytest.mark.cuda
+def test_run_counts_device_overlap_groups(cuda, tmp_path):
+    """`run --device cuda` on a two-chromosome sim finds its read groups'
+    overlaps on the card (`overlap_device_groups` and the pass's launches
+    move; neither moves on the CPU), and writes the CPU run's bytes."""
+    from volcanosv_tpu_torch.cli import main
+    from volcanosv_tpu_torch.utils.logging import COUNTS
+    sim = ["--length", "50000", "--chroms", "2", "--n_del", "2", "--n_ins",
+           "2", "--n_small", "4", "--min_len", "300", "--max_len", "1000",
+           "--coverage", "20", "--read_len", "7000", "--seed", "3"]
+    assert main(["sim", "-o", str(tmp_path / "sim")] + sim) == 0
+    out = {}
+    for dev in ("cuda", "cpu"):
+        groups = COUNTS["overlap_device_groups"]
+        launches = overlap.ava_overlaps.launches
+        assert main(["run", "--ref", str(tmp_path / "sim" / "ref.fa"),
+                     "--fastq", str(tmp_path / "sim" / "reads.fastq"),
+                     "-o", str(tmp_path / dev), "--device", dev]) == 0
+        moved = (COUNTS["overlap_device_groups"] - groups,
+                 overlap.ava_overlaps.launches - launches)
+        if dev == "cuda":
+            assert moved[0] >= 2 and moved[0] == moved[1], moved
+        else:
+            assert moved == (0, 0)
+        out[dev] = {name: (tmp_path / dev / name).read_bytes()
+                    for name in ("volcanosv_variants.vcf",
+                                 "final_contigs.fa")}
+    assert out["cuda"] == out["cpu"]

@@ -356,3 +356,58 @@ def mec_restart_mecs(obs_read, obs_snp, obs_allele, h0, n_reads):
         a = np.where(va >= 0, 1, -1)
         out.append(int(((a[obs_read] * h[obs_snp] * o < 0) & (o != 0)).sum()))
     return out
+
+
+# read groups for the all-vs-all overlap pass (ops/overlap.py); chip_smoke.py
+# holds a copy of ava_group, since the smoke run imports no tests
+
+
+def ava_group(seed, hap_len=250_000, coverage=14.0, read_len=13_500,
+              read_sd=3_000, err=0.002, repeats=0, tandem=0, min_len=200):
+    """One haplotype's reads as 2-bit code arrays: a random haplotype (with
+    `repeats` copies of a 2 kb unit and 300 copies of a 40 bp one spread
+    over it, when asked, so that hash runs pass the 64-hit cap and the
+    occurrence filter; with `tandem` copies of a 1 kb unit in one array at
+    a third of its length, so that a read pair inside the array shares
+    tens of thousands of anchors), reads at random starts, half
+    reverse-complemented, with substitutions at err / 2 and 1-3 bp
+    insertions and deletions at err / 4 each a base."""
+    rng = np.random.default_rng(seed)
+    hap = rng.integers(0, 4, hap_len).astype(np.int8)
+    if repeats:
+        unit = rng.integers(0, 4, 2000).astype(np.int8)
+        short = rng.integers(0, 4, 40).astype(np.int8)
+        for at in rng.integers(0, hap_len - 2000, repeats):
+            hap[at:at + 2000] = unit
+        for at in rng.integers(0, hap_len - 40, 300):
+            hap[at:at + 40] = short
+    if tandem:
+        unit = rng.integers(0, 4, 1000).astype(np.int8)
+        at = hap_len // 3
+        hap[at:at + 1000 * tandem] = np.tile(unit, tandem)
+    n = max(1, int(round(coverage * hap_len / read_len)))
+    reads = []
+    for _ in range(n):
+        L = int(np.clip(rng.normal(read_len, read_sd), min_len, hap_len))
+        s = int(rng.integers(0, hap_len - L + 1))
+        r = hap[s:s + L]
+        u = rng.random(L)
+        sub = u < err / 2
+        ins = (u >= err / 2) & (u < 3 * err / 4)
+        dele = (u >= 3 * err / 4) & (u < err)
+        r = np.where(sub, (r + rng.integers(1, 4, L)) % 4, r).astype(np.int8)
+        parts, last = [], 0
+        for i in np.nonzero(ins | dele)[0]:
+            parts.append(r[last:i])
+            size = int(rng.integers(1, 4))
+            if ins[i]:
+                parts.append(rng.integers(0, 4, size).astype(np.int8))
+                last = i
+            else:
+                last = min(L, i + size)
+        parts.append(r[last:])
+        r = np.concatenate(parts).astype(np.int8)
+        if rng.random() < 0.5:
+            r = (3 - r[::-1]).astype(np.int8)
+        reads.append(np.ascontiguousarray(r))
+    return reads

@@ -54,7 +54,7 @@ def sim_args(mb: float, coverage: float, read_len: int, err: float,
 def wrappers() -> dict:
     """Every kernel wrapper of the port by its kernels-line name."""
     from volcanosv_tpu_torch.ops import banded_align as ba
-    from volcanosv_tpu_torch.ops import kmer
+    from volcanosv_tpu_torch.ops import kmer, overlap
     from volcanosv_tpu_torch.phasing import phase, realign
     from volcanosv_tpu_torch.qc import flagger
     return dict(banded_dp=ba.banded_dp, tb_walk=ba.tb_walk,
@@ -64,7 +64,8 @@ def wrappers() -> dict:
                 kmer_count=kmer.kmer_count_into,
                 unique_mask=kmer.unique_mask, kmer_vote=kmer.kmer_vote,
                 mec_phase=phase._mec_phase,
-                canonical_hashes=kmer.canonical_hashes)
+                canonical_hashes=kmer.canonical_hashes,
+                ava_overlaps=overlap.ava_overlaps)
 
 
 def reset_counts() -> None:

@@ -42,7 +42,7 @@ def run_assembly(groups: dict[str, list[str]], cfg: AssemblyConfig,
     reads, <1 for double-assigned ones — those may be the OTHER
     haplotype, so they must not outvote phased reads in consensus).
 
-    The polish stage runs on `device`."""
+    The overlap pass and the polish stage run on `device`."""
     device = resolve_device(device)
     names = sorted(groups)
     if not names:
@@ -75,7 +75,8 @@ def run_assembly(groups: dict[str, list[str]], cfg: AssemblyConfig,
 
     with stage_timer("farm_overlap", log):
         overlaps = _find_overlaps(pool, cfg, AlignConfig.preset("ava"),
-                                  group_of=np.asarray(group_of, np.int64)) \
+                                  group_of=np.asarray(group_of, np.int64),
+                                  device=device) \
             if len(pool) > 1 else []
     ov_by_gi: dict[int, list[_Overlap]] = {}
     for ov in overlaps:
@@ -139,7 +140,8 @@ def run_assembly(groups: dict[str, list[str]], cfg: AssemblyConfig,
             v = votes.get(gi)
             if not v or len(v) != len(ds):
                 continue
-            ovs = _find_overlaps(ds, cfg, AlignConfig.preset("ava"))
+            ovs = _find_overlaps(ds, cfg, AlignConfig.preset("ava"),
+                                 device=device)
             drop = [False] * len(ds)
 
             def ambiguous(i: int) -> bool:

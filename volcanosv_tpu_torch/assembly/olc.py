@@ -74,9 +74,12 @@ def _emit_overlap(overlaps, qi, ti, la, lb, strand, score,
 
 def _find_overlaps(seqs: list[str], cfg: AssemblyConfig,
                    acfg: AlignConfig,
-                   group_of: np.ndarray | None = None) -> list[_Overlap]:
+                   group_of: np.ndarray | None = None,
+                   device=DEFAULT_DEVICE) -> list[_Overlap]:
     """All-vs-all dovetail overlaps via the shared minimizer+chain core:
-    one native ava_overlaps call.
+    one ava_overlaps call a group.  On a CUDA device the card's pass
+    (ops/overlap.py, csrc/ava.cu) finds them, on the CPU the native
+    ava.cpp; both give the same columns.
 
     group_of: optional per-read group id — overlaps are only sought within
     a group.  Groups are processed as independent sub-pools with their own
@@ -93,21 +96,27 @@ def _find_overlaps(seqs: list[str], cfg: AssemblyConfig,
             if len(idxs) < 2:
                 continue
             sub = [seqs[i] for i in idxs]
-            for ov in _find_overlaps(sub, cfg, acfg):
+            for ov in _find_overlaps(sub, cfg, acfg, device=device):
                 out.append(_Overlap(int(idxs[ov.a]), int(idxs[ov.b]),
                                     ov.a_start, ov.a_end, ov.b_start,
                                     ov.b_end, ov.strand, ov.score))
         out.sort(key=lambda o: (o.a, o.b))
         return out
-    from ..native import ava_overlaps_np, get_lib
+    device = resolve_device(device)
     codes = [encode_seq(s) for s in seqs]
     overlaps: list[_Overlap] = []
     qlens = np.array([len(c) for c in codes], np.int64)
-    # fused native path: sketch + index + expansion + segment chaining in
-    # one call (ava.cpp)
+    # sketch + index + expansion + segment chaining: the card's pass on a
+    # CUDA device, else one native call (ava.cpp)
     with stage_timer("overlap_native"):
-        a, b, strand, score, q_s, q_e, t_s, t_e = ava_overlaps_np(
-            get_lib(), codes, acfg)
+        if device.type == "cuda":
+            from ..ops.overlap import ava_overlaps
+            cols = ava_overlaps(codes, acfg, device)
+            count("overlap_device_groups", 1)
+        else:
+            from ..native import ava_overlaps_np, get_lib
+            cols = ava_overlaps_np(get_lib(), codes, acfg)
+    a, b, strand, score, q_s, q_e, t_s, t_e = cols
     count("overlap_hits", len(a))
     for i in range(len(a)):
         _emit_overlap(overlaps, int(a[i]), int(b[i]),
@@ -843,7 +852,7 @@ def assemble_block(read_seqs: list[str], cfg: AssemblyConfig,
     if len(read_seqs) == 1:
         return AssemblyResult([read_seqs[0]], 1, 0)
     acfg = AlignConfig.preset("ava")
-    overlaps = _find_overlaps(read_seqs, cfg, acfg)
+    overlaps = _find_overlaps(read_seqs, cfg, acfg, device=device)
     drafts = layout_block(read_seqs, overlaps, cfg)
     rounds = cfg.consensus_rounds if polish_rounds is None else polish_rounds
     if drafts and rounds > 0 and len(read_seqs) >= 3:

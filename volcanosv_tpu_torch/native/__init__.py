@@ -1,9 +1,11 @@
 """Native (C++) host helpers, built on demand with g++.
 
-The six sources are byte-for-byte copies of the reference package's
+Six sources are byte-for-byte copies of the reference package's
 `native/` helpers (anchor chaining, minimizer sketching, fused seed+chain,
-all-vs-all overlaps, BAM scanning, inversion-soup scanning).  They are host
-code: every device kernel of the port lives under `csrc/`.
+all-vs-all overlaps, BAM scanning, inversion-soup scanning).  The seventh,
+`ava_index.cpp`, is the port's own: the host half of the card's overlap
+pass (`ops/overlap.py`), which repeats `ava.cpp`'s sketch and index.  They
+are host code: every device kernel of the port lives under `csrc/`.
 
 The library is built at first use into `<checkout>/build/native/`, never
 into the package directory.  A failed build raises `RuntimeError` with the
@@ -13,6 +15,7 @@ cap on its runs, for one), so a missing library would change the calls.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -20,7 +23,7 @@ import subprocess
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SOURCES = ["chain.cpp", "bamscan.cpp", "sketch.cpp", "seedchain.cpp",
-            "ava.cpp", "soup.cpp"]
+            "ava.cpp", "soup.cpp", "ava_index.cpp"]
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build")
 CXX = "g++"
 
@@ -127,6 +130,15 @@ def _configure(lib) -> None:
     lib.ava_free.argtypes = [ctypes.POINTER(AvaStruct)]
     lib.ava_free.restype = None
 
+    lib.ava_index.argtypes = [
+        i8p, i64p, ctypes.c_int64,                      # codes, q_off, n
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32]  # k, w, n_threads
+    lib.ava_index.restype = ctypes.POINTER(AvaIndexStruct)
+    lib.ava_index_free.argtypes = [ctypes.POINTER(AvaIndexStruct)]
+    lib.ava_index_free.restype = None
+    lib.ava_gap_costs.argtypes = [ctypes.c_float, ctypes.c_int64, f32p]
+    lib.ava_gap_costs.restype = None
+
     lib.soup_runs.argtypes = [
         i64p, ctypes.c_int64, ctypes.c_int64,           # cigar, n_ops, pos
         i8p, ctypes.c_int64, i8p, ctypes.c_int64,       # qc, qlen, tc, tlen
@@ -158,6 +170,66 @@ def ava_overlaps_np(lib, codes, acfg):
     finally:
         lib.ava_free(res)
     return cols
+
+
+@contextlib.contextmanager
+def ava_index_views(lib, codes, k: int, w: int):
+    """ava_index on a list of 2-bit code arrays, as numpy views of the
+    library's buffers, freed when the block ends: the per-read minimizers
+    (`min_off` (n + 1,) int64, `min_hash` uint32, `min_pos` int32,
+    `min_strand` int8) and the filtered index (`idx_hash` ascending uint32,
+    `idx_read`, `idx_pos` int32, `idx_strand` int8), as ava_overlaps
+    builds them."""
+    import numpy as np
+    q_off = np.zeros(len(codes) + 1, np.int64)
+    np.cumsum([len(c) for c in codes], out=q_off[1:])
+    flat = np.concatenate(codes) if codes else np.zeros(0, np.int8)
+    flat = np.ascontiguousarray(flat, np.int8)
+    res = lib.ava_index(flat, q_off, len(codes), k, w, 0)
+    try:
+        r = res.contents
+        n_min, n_idx = int(r.n_min), int(r.n_idx)
+
+        def view(p, n):
+            return np.ctypeslib.as_array(p, shape=(n,)) if n else \
+                np.zeros(0, np.dtype(p._type_))
+
+        yield dict(min_off=view(r.min_off, len(codes) + 1),
+                   min_hash=view(r.min_hash, n_min),
+                   min_pos=view(r.min_pos, n_min),
+                   min_strand=view(r.min_strand, n_min),
+                   idx_hash=view(r.idx_hash, n_idx),
+                   idx_read=view(r.idx_read, n_idx),
+                   idx_pos=view(r.idx_pos, n_idx),
+                   idx_strand=view(r.idx_strand, n_idx))
+    finally:
+        lib.ava_index_free(res)
+
+
+def ava_gap_costs_np(lib, gap_scale: float, bandwidth: int):
+    """chain_dp's gap cost for gaps 0..bandwidth, (bandwidth + 1,) float32,
+    from the same expression in the same compiled library."""
+    import numpy as np
+    out = np.zeros(bandwidth + 1, np.float32)
+    lib.ava_gap_costs(gap_scale, bandwidth, out)
+    return out
+
+
+class AvaIndexStruct(ctypes.Structure):
+    """Mirror of AvaIndexResult in ava_index.cpp (field order must match)."""
+    _fields_ = [
+        ("n_min", ctypes.c_int64),
+        ("min_off", ctypes.POINTER(ctypes.c_int64)),
+        ("min_hash", ctypes.POINTER(ctypes.c_uint32)),
+        ("min_pos", ctypes.POINTER(ctypes.c_int32)),
+        ("min_strand", ctypes.POINTER(ctypes.c_int8)),
+        ("n_idx", ctypes.c_int64),
+        ("idx_hash", ctypes.POINTER(ctypes.c_uint32)),
+        ("idx_read", ctypes.POINTER(ctypes.c_int32)),
+        ("idx_pos", ctypes.POINTER(ctypes.c_int32)),
+        ("idx_strand", ctypes.POINTER(ctypes.c_int8)),
+        ("work", ctypes.c_void_p),
+    ]
 
 
 class AvaStruct(ctypes.Structure):

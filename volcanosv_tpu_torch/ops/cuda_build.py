@@ -18,7 +18,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("banded_dp", "tb_walk", "pairhmm", "coverage_hmm", "kmer", "mec")
+SOURCES = ("banded_dp", "tb_walk", "pairhmm", "coverage_hmm", "kmer", "mec",
+           "ava")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -102,6 +103,20 @@ def _configure(name: str, lib: ctypes.CDLL) -> None:
         lib.mec_phase_launch.argtypes = \
             [vp, ci, vp, ci, vp, cl, vp] + [ci] * 6 + [vp, cl] + [vp] * 4
         lib.mec_phase_launch.restype = ci
+    elif name == "ava":
+        lib.ava_hits_launch.argtypes = [vp, vp, ci, vp, vp, ci, ci] + [vp] * 4
+        lib.ava_hits_launch.restype = ci
+        lib.ava_read_sums_launch.argtypes = [vp, vp, ci, vp, vp]
+        lib.ava_read_sums_launch.restype = ci
+        lib.ava_count_launch.argtypes = [ci] * 4 + [vp] * 8
+        lib.ava_count_launch.restype = ci
+        lib.ava_scatter_launch.argtypes = [ci] * 4 + [vp] * 9 + [ci] + [vp] * 3
+        lib.ava_scatter_launch.restype = ci
+        lib.ava_sort_launch.argtypes = [vp, ci, vp, vp, vp, ci, vp]
+        lib.ava_sort_launch.restype = ci
+        lib.ava_dp_launch.argtypes = \
+            [vp, ci] + [vp] * 4 + [ci] * 4 + [cf, ci] + [vp] * 7
+        lib.ava_dp_launch.restype = ci
 
 
 def load_all() -> dict[str, ctypes.CDLL]:
