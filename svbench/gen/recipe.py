@@ -9,10 +9,11 @@ repeats).  The FASTA, FASTQ and VCF writers are plain copies of the port's
 `io/vcf.py::make_header` / `write_vcf` / `VcfRecord.to_line` at the same
 commit.  Nothing here imports the program.
 
-`make_job` is what the benchmark's set-up runs, one process a job: one
-chromosome of the cell's length from (seed, index), its reference and
-reads (and, for a cell that brings its own assembly, its contigs) written
-under the job's directory, and the truth handed back for the judge.
+`make_job` is what the benchmark's set-up runs, one process a job: the
+cell's chromosomes (`chroms`, one unless the traffic says) of its length
+from (seed, index), their reference and reads (and, for a cell that brings
+its own assembly, its contigs) written under the job's directory, and the
+truth handed back for the judge.
 """
 from __future__ import annotations
 
@@ -26,17 +27,19 @@ from . import sim
 
 @dataclass
 class SimParams:
-    """The arguments of the port's `sim` subcommand, with its defaults."""
+    """The arguments of the port's `sim` subcommand, with its defaults.  The
+    port implants each count on every chromosome; here a count may also be
+    a list, one count a chromosome."""
     length: int = 80_000
     chroms: int = 1
-    n_del: int = 4
-    n_ins: int = 4
-    n_inv: int = 0
-    n_dup: int = 0
+    n_del: int | list[int] = 4
+    n_ins: int | list[int] = 4
+    n_inv: int | list[int] = 0
+    n_dup: int | list[int] = 0
     n_tra: int = 0
     n_clustered: int = 0
     n_nested: int = 0
-    n_small: int = 0
+    n_small: int | list[int] = 0
     n_tandem: int = 0
     n_segdup: int = 0
     n_homopoly: int = 0
@@ -67,6 +70,25 @@ class Sim:
     reads: list
 
 
+def _implant_svs(rng, ref: dict, p: SimParams):
+    """`sim.implant_svs` a chromosome at a time, with that chromosome's
+    counts.  It draws for each chromosome in turn from the one generator,
+    so with the same count on every chromosome this is its one call."""
+    def of(n, k):
+        return n[k] if isinstance(n, list) else n
+    hap1, hap2, truth = {}, {}, []
+    for k, (chrom, seq) in enumerate(ref.items()):
+        h1, h2, t = sim.implant_svs(
+            rng, {chrom: seq}, n_del=of(p.n_del, k), n_ins=of(p.n_ins, k),
+            n_inv=of(p.n_inv, k), n_dup=of(p.n_dup, k), min_len=p.min_len,
+            max_len=p.max_len, n_clustered=p.n_clustered,
+            n_nested=p.n_nested, n_small=of(p.n_small, k))
+        hap1.update(h1)
+        hap2.update(h2)
+        truth += t
+    return hap1, hap2, truth
+
+
 def simulate(p: SimParams, seed) -> Sim:
     """The port's `sim` draws, in its order, from default_rng(seed)."""
     rng = np.random.default_rng(seed)
@@ -76,10 +98,7 @@ def simulate(p: SimParams, seed) -> Sim:
         ref, feats = sim.implant_repeats(
             rng, ref, n_tandem=p.n_tandem, n_segdup=p.n_segdup,
             n_homopoly=p.n_homopoly)
-    hap1, hap2, truth = sim.implant_svs(
-        rng, ref, n_del=p.n_del, n_ins=p.n_ins, n_inv=p.n_inv,
-        n_dup=p.n_dup, min_len=p.min_len, max_len=p.max_len,
-        n_clustered=p.n_clustered, n_nested=p.n_nested, n_small=p.n_small)
+    hap1, hap2, truth = _implant_svs(rng, ref, p)
     hap1, hap2, truth_snps = sim.implant_snps_ref(
         rng, ref, hap1, hap2, truth, rate=p.snp_rate)
     if p.n_tra:
@@ -211,23 +230,32 @@ def _share(per_bp: float, length: int, index: int) -> int:
 
 def job_params(config: dict, traffic: dict, index: int) -> SimParams:
     """Job `index`'s sim arguments: the configuration's reads and variant
-    densities at the cell's chromosome length, and the cell's repeats."""
+    densities over the job's `chroms` chromosomes (traffic key, default 1)
+    of the cell's length, and the cell's repeats (each count on every
+    chromosome).  Chromosome c of job i is the (i * chroms + c)-th of the
+    cell's chromosomes and takes that one's share, so that a job holds the
+    share of its whole length, chroms x job_length; one chromosome keeps
+    plain counts."""
     reads, var = config["reads"], config["variants"]
     length = int(traffic["job_length"])
+    chroms = int(traffic.get("chroms", 1))
     sv = var["sv_per_mb"]
     lo, hi = var["small_indel_len"]
     if (lo, hi) != (2, 29):
         raise ValueError("the generator draws small indels of 2-29 bp only")
+
+    def share(per_mb: float):
+        n = [_share(per_mb / 1e6, length, index * chroms + c)
+             for c in range(chroms)]
+        return n[0] if chroms == 1 else n
     return SimParams.from_dict(dict(
-        length=length, chroms=1,
+        length=length, chroms=chroms,
         coverage=reads["coverage"], read_len=reads["read_len"],
         err=reads["err"], snp_rate=var["snp_per_kb"] / 1e3,
         min_len=var["sv_len"][0], max_len=var["sv_len"][1],
-        n_del=_share(sv["DEL"] / 1e6, length, index),
-        n_ins=_share(sv["INS"] / 1e6, length, index),
-        n_inv=_share(sv["INV"] / 1e6, length, index),
-        n_dup=_share(sv["DUP"] / 1e6, length, index),
-        n_small=_share(var["small_indel_per_mb"] / 1e6, length, index),
+        n_del=share(sv["DEL"]), n_ins=share(sv["INS"]),
+        n_inv=share(sv["INV"]), n_dup=share(sv["DUP"]),
+        n_small=share(var["small_indel_per_mb"]),
         **traffic.get("repeats", {})))
 
 

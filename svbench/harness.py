@@ -1,12 +1,14 @@
-"""The benchmark of volcanosv_tpu_torch: a stream of single-chromosome jobs.
+"""The benchmark of volcanosv_tpu_torch: a stream of chromosome jobs.
 
     python3 svbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 A cell of BENCHMARK.json names a configuration (svbench/configs/<name>.json:
 the reads and the variant densities of a deployment) and a traffic mix
-(svbench/traffic/<name>.json: the job's chromosome length, any repeats, the
-port's commands a job runs, and the pool size); a job's counts of variants
-are the densities times its length (svbench/gen/recipe.py).
+(svbench/traffic/<name>.json: the job's chromosome length and, under
+`chroms`, its number of chromosomes (default 1), any repeats, the port's
+commands a job runs, the pool size, and under `ranks` the processes a job
+runs as (default 1)); a job's counts of variants are the densities times its
+length (svbench/gen/recipe.py).
 Its correctness limits are svbench/limits/<cell>.json, and each per-layer
 metric is svbench/metrics/<metric>.json with its reader in
 svbench/readers/<kind>.py.  All are found by name.
@@ -26,6 +28,14 @@ outputs against what the generator implanted, and the numbers pooled over
 the window are compared with the cell's limits.  With --trace 1 the
 window runs under torch.profiler (CUDA activity only) with spans around
 the port's layers, and the per-layer metrics are reported instead.
+
+With `ranks` N > 1 each job runs as N rank processes of one
+`torch.distributed` group, one to a card (svbench/ranks.py), started and
+warmed up at set-up; this process does no CUDA work.  Then
+`host_rss_peak_gb` is the highest sum of the ranks' VmRSS read at one
+instant, the CPU seconds are the ranks' and this process's, a job's stage
+seconds and counters are summed over the ranks, each rank traces its own
+card, and the result's device count is N.
 """
 from __future__ import annotations
 
@@ -123,22 +133,34 @@ def host_probe_s() -> float:
     return time.perf_counter() - t0
 
 
-class RssSampler:
-    """The highest VmRSS of this process, read every `period` seconds."""
+def vmrss_kb(status_path: str) -> int:
+    """VmRSS of the process whose /proc status file this is; 0 once it
+    has ended."""
+    try:
+        with open(status_path) as fh:
+            for line in fh:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1])
+    except OSError:
+        pass
+    return 0
 
-    def __init__(self, period: float = 0.02):
+
+class RssSampler:
+    """The highest VmRSS of this process, or the highest sum of the VmRSS
+    of the processes `pids` read at one instant, read every `period`
+    seconds."""
+
+    def __init__(self, period: float = 0.02, pids: list[int] | None = None):
         self.period = period
+        self.paths = ["/proc/self/status"] if pids is None else [
+            f"/proc/{p}/status" for p in pids]
         self.peak_kb = 0
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
 
-    @staticmethod
-    def rss_kb() -> int:
-        with open("/proc/self/status") as fh:
-            for line in fh:
-                if line.startswith("VmRSS:"):
-                    return int(line.split()[1])
-        return 0
+    def rss_kb(self) -> int:
+        return sum(vmrss_kb(p) for p in self.paths)
 
     def _run(self) -> None:
         while not self._stop.is_set():
@@ -186,6 +208,84 @@ def run_job(cli_main, traffic: dict, config: dict, job: dict, out_dir: str,
     stages = {k: v[0] - before.get(k, 0.0) for k, v in STAGE_TIMES.items()
               if v[0] - before.get(k, 0.0) > 0}
     return dict(start=t0, end=t1, seconds=t1 - t0, stages=stages)
+
+
+class Local:
+    """Jobs in this process: each command an in-process call of the port's
+    `cli.main`.  `Ranks` (svbench/ranks.py) has the same calls."""
+
+    count = 1
+    pids = None         # the RSS sampler reads this process
+
+    def __init__(self, traffic: dict, config: dict, device: str):
+        import torch
+
+        from volcanosv_tpu_torch.cli import main as cli_main
+        self.torch, self.cli_main = torch, cli_main
+        self.traffic, self.config, self.device = traffic, config, device
+        self.undo: list = []
+        self.tracer = self.dev_trace = None
+
+    @property
+    def kind(self) -> str:
+        return self.torch.cuda.get_device_name(0) if self.device == "cuda" \
+            else self.device
+
+    def run(self, job: dict, out_dir: str) -> dict:
+        return run_job(self.cli_main, self.traffic, self.config, job,
+                       out_dir, self.device)
+
+    def install(self, per_layer: list, win, trace_path: str) -> None:
+        """The traced run's spans, the readers' hooks and the device
+        trace."""
+        from svbench import trace as tr
+        self.tracer = tr.Spans()
+        self.tracer.install()
+        self.undo.append(self.tracer.uninstall)
+        for _m, mspec in per_layer:
+            rd = importlib.import_module(f"svbench.readers.{mspec['reader']}")
+            if hasattr(rd, "install"):
+                self.undo.append(rd.install(mspec, win))
+        self.dev_trace = tr.DeviceTrace(trace_path)
+
+    def sync(self) -> None:
+        if self.device == "cuda":
+            self.torch.cuda.synchronize()
+
+    def start(self) -> None:
+        if self.dev_trace:
+            self.dev_trace.start()
+
+    def cpu_seconds(self) -> float:
+        return cpu_seconds()
+
+    def stop(self) -> None:
+        if self.dev_trace:
+            self.dev_trace.stop()
+
+    def uninstall(self) -> None:
+        while self.undo:
+            self.undo.pop()()
+
+    def peak_bytes(self) -> int:
+        return self.torch.cuda.max_memory_allocated() \
+            if self.device == "cuda" else 0
+
+    def summary(self, w0: float, w1: float) -> dict:
+        from svbench import trace as tr
+        return tr.summarize(self.dev_trace.ops(), self.tracer.log, w0, w1)
+
+    def close(self) -> None:
+        pass
+
+
+def make_runner(traffic: dict, config: dict, device: str, root: str):
+    """How the cell's jobs run: in this process, or as `ranks` processes."""
+    n = int(traffic.get("ranks", 1))
+    if n == 1:
+        return Local(traffic, config, device)
+    from svbench.ranks import Ranks
+    return Ranks(n, traffic, config, device, root)
 
 
 class Pool:
@@ -245,11 +345,13 @@ class Pool:
 
 class Window:
     """What the readers see: the window's jobs, their reference Mb, the
-    device trace's summary, and what installed readers recorded."""
+    seconds from the window's start to the last job's end, the device
+    trace's summary, and what installed readers recorded."""
 
     def __init__(self):
         self.jobs: list[dict] = []
         self.ref_mb = 0.0
+        self.seconds: float | None = None
         self.trace: dict | None = None
         self.cpu_s: float | None = None
         self.recorded: dict = {}
@@ -272,24 +374,26 @@ def forbidden_modules() -> list[str]:
 
 def measure(spec: dict, seed: int, seconds: float, trace: bool,
             device: str = "cuda", age_at_start: float = 0.0,
-            t_start: float | None = None) -> dict:
+            t_start: float | None = None, root: str | None = None) -> dict:
     """Set-up, the window and the judging of one run; returns the result
-    line's object (and the per-job lines printed on the way)."""
+    line's object (and the per-job lines printed on the way).  The run
+    works in a temporary directory, or under `root`, which it leaves in
+    place with the jobs and their outputs."""
     from svbench.reference import judge
     t_start = time.perf_counter() if t_start is None else t_start
     traffic, config = spec["traffic"], spec["config"]
     pool_n = int(traffic["pool"])
-    root = tempfile.mkdtemp(prefix="svbench-")
+    keep = root is not None
+    root = root if keep else tempfile.mkdtemp(prefix="svbench-")
+    os.makedirs(root, exist_ok=True)
+    runner = None
     try:
         jobs = Pool(spec, seed, pool_n + 1, root)
         try:
-            import torch
-
-            from volcanosv_tpu_torch.cli import main as cli_main
+            runner = make_runner(traffic, config, device, root)
             facts = host_facts()
             warm = jobs.get(0)
-            warm_run = run_job(cli_main, traffic, config, warm,
-                               os.path.join(root, "warm-out"), device)
+            warm_run = runner.run(warm, os.path.join(root, "warm-out"))
             shutil.rmtree(os.path.join(root, "warm-out"), ignore_errors=True)
             pool = [jobs.get(i) for i in range(1, pool_n + 1)]
         finally:
@@ -302,31 +406,20 @@ def measure(spec: dict, seed: int, seconds: float, trace: bool,
             raise SystemExit(f"set-up loaded {found}")
 
         win = Window()
-        undo = []
-        tracer = dev_trace = None
         if trace:
-            from svbench import trace as tr
-            tracer = tr.Spans()
-            tracer.install()
-            undo.append(tracer.uninstall)
-            for _m, mspec in spec["per_layer"]:
-                rd = importlib.import_module(f"svbench.readers.{mspec['reader']}")
-                if hasattr(rd, "install"):
-                    undo.append(rd.install(mspec, win))
-            dev_trace = tr.DeviceTrace(os.path.join(root, "trace.json"))
+            runner.install(spec["per_layer"], win,
+                           os.path.join(root, "trace.json"))
         gc.collect()
         os.sync()       # the pool's files reach the disk before the window
         probe_before = host_probe_s()
-        if device == "cuda":
-            torch.cuda.synchronize()
+        runner.sync()
         setup_s = age_at_start + time.perf_counter() - t_start
         attempted = failed = 0
         done = []
         card_before = nvidia_smi() if device == "cuda" else None
-        with RssSampler() as rss:
-            if dev_trace:
-                dev_trace.start()
-            c0 = cpu_seconds()
+        with RssSampler(pids=runner.pids) as rss:
+            runner.start()
+            c0 = runner.cpu_seconds()
             w0 = time.perf_counter()
             for job in pool:
                 if time.perf_counter() - w0 >= seconds:
@@ -334,8 +427,7 @@ def measure(spec: dict, seed: int, seconds: float, trace: bool,
                 attempted += 1
                 out_dir = os.path.join(root, f"out{job['index']}")
                 try:
-                    r = run_job(cli_main, traffic, config, job, out_dir,
-                                device)
+                    r = runner.run(job, out_dir)
                 except Exception:
                     failed += 1
                     log(f"job {job['index']} raised:\n"
@@ -344,18 +436,15 @@ def measure(spec: dict, seed: int, seconds: float, trace: bool,
                 finally:
                     gc.collect()
                 done.append((job, out_dir, r))
-            if device == "cuda":
-                torch.cuda.synchronize()
+            runner.sync()
             w1 = time.perf_counter()
-            c1 = cpu_seconds()
-            if dev_trace:
-                dev_trace.stop()
+            c1 = runner.cpu_seconds()
+            runner.stop()
         card_after = nvidia_smi() if device == "cuda" else None
         probe_after = host_probe_s()
-        while undo:
-            undo.pop()()
+        runner.uninstall()
         t_last = max([r["end"] for _j, _o, r in done] + [w0])
-        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        peak = runner.peak_bytes()
 
         # the judge: every completed job, once the window has closed
         counts = []
@@ -369,8 +458,11 @@ def measure(spec: dict, seed: int, seconds: float, trace: bool,
                 continue
             counts.append(c)
             win.jobs.append(dict(stages=r["stages"], length=c["length"]))
-            print(json.dumps(dict(job=job["index"], seconds=r["seconds"],
-                                  stages=r["stages"], counts=c)), flush=True)
+            line = dict(job=job["index"], seconds=r["seconds"],
+                        stages=r["stages"], counts=c)
+            if "ranks" in r:
+                line.update(ranks=r["ranks"], program_counts=r["counts"])
+            print(json.dumps(line), flush=True)
         numbers = judge.pool(counts)
         ok, checks = judge.verdict(numbers, spec["limits"])
         correct = ok and failed == 0 and attempted > 0
@@ -378,9 +470,11 @@ def measure(spec: dict, seed: int, seconds: float, trace: bool,
         ref_bases = sum(len(s) for job, _o, _r in done
                         for s in job["ref"].values())
         win.ref_mb = ref_bases / 1e6
+        win.seconds = t_last - w0 if done else None
         win.cpu_s = c1 - c0
         print(json.dumps(dict(
             window_s=w1 - w0, jobs_done=len(done), cpu_s=win.cpu_s,
+            kb_per_s=ref_bases / 1e3 / win.seconds if done else None,
             loadavg_after=list(os.getloadavg()),
             job_s=[r["seconds"] for _j, _o, r in done],
             card_before=card_before, card_after=card_after,
@@ -391,23 +485,27 @@ def measure(spec: dict, seed: int, seconds: float, trace: bool,
         metrics = {}
         out_device = dict(
             platform="gpu" if device == "cuda" else device,
-            kind=torch.cuda.get_device_name(0) if device == "cuda" else device,
-            count=1, memory_peak_bytes=int(peak))
+            kind=runner.kind, count=runner.count,
+            memory_peak_bytes=int(peak))
         if trace:
-            ops = dev_trace.ops()
-            s = tr.summarize(ops, tracer.log, w0, w1)
+            s = runner.summary(w0, w1)
             win.trace = s
-            out_device.update(busy_s=s["busy_s"], window_s=s["window_s"])
+            if s:
+                out_device.update(busy_s=s["busy_s"], window_s=s["window_s"])
+            if s and "busy_s_by_card" in s:
+                print(json.dumps(dict(busy_s_by_card=s["busy_s_by_card"],
+                                      window_s=s["window_s"])), flush=True)
             for m, mspec in spec["per_layer"]:
                 rd = importlib.import_module(f"svbench.readers.{mspec['reader']}")
                 v = rd.read(mspec, win)
                 if v is not None:
                     metrics[m["name"]] = {"value": v, "unit": m["unit"]}
-            result["breakdown"] = dict(device_ops=s["device_ops"],
-                                       idle_gaps=s["idle_gaps"])
+            if s:
+                result["breakdown"] = dict(device_ops=s["device_ops"],
+                                           idle_gaps=s["idle_gaps"])
         else:
             values = dict(
-                ref_kb_per_s=ref_bases / 1e3 / (t_last - w0) if done else None,
+                ref_kb_per_s=ref_bases / 1e3 / win.seconds if done else None,
                 host_rss_peak_gb=rss.peak_kb * 1024 / 1e9,
                 setup_s=setup_s)
             for m in spec["end_to_end"]:
@@ -417,7 +515,10 @@ def measure(spec: dict, seed: int, seconds: float, trace: bool,
         result.update(metrics=metrics, device=out_device, checks=checks)
         return result
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if runner is not None:
+            runner.close()
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 def main(argv=None) -> int:

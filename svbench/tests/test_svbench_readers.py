@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 
 from svbench import harness
-from svbench.readers import (bounds, device_idle, kernel_roofline, process_cpu,
-                             stage_seconds)
+from svbench.readers import (bounds, device_idle, job_rate, kernel_roofline,
+                             process_cpu, stage_seconds)
 
 METRICS = sorted(f[:-5] for f in os.listdir(os.path.join(harness.HERE,
                                                           "metrics")))
@@ -46,6 +46,13 @@ def test_process_cpu_seconds_a_mb():
     w.cpu_s = 40.0
     assert process_cpu.read({}, w) == pytest.approx(80.0)
     assert harness.cpu_seconds() > 0
+
+
+def test_job_rate_is_the_window_kb_over_its_seconds():
+    w = window([dict(length=250_000, stages={})] * 3)
+    assert job_rate.read({}, w) is None
+    w.seconds = 25.0
+    assert job_rate.read({}, w) == pytest.approx(30.0)
 
 
 def test_device_idle():

@@ -9,7 +9,9 @@
   stream at the window's start ties the device's clock to the host's.
 - From both: the device's busy time (the union of its operations), the
   operations that took most time, and the idle time by the innermost span
-  open on the host meanwhile.
+  open on the host meanwhile.  Where a job runs as ranks (svbench/ranks.py)
+  each rank installs the spans and traces its own card, and the ranks'
+  windows are summed up by `summarize_ranks`.
 """
 from __future__ import annotations
 
@@ -203,17 +205,44 @@ def idle_by_span(busy, segs, lo: float, hi: float) -> dict[str, float]:
     return out
 
 
-def summarize(ops, spans, lo: float, hi: float) -> dict:
-    """busy_s, window_s and the breakdown of the traced window."""
+def _tally(ops, spans, lo: float, hi: float):
+    """Busy seconds, device seconds by operation and idle seconds by span."""
     busy = busy_intervals(ops, lo, hi)
     by_name: dict[str, float] = {}
     for name, s, e in ops:
         by_name[name] = by_name.get(name, 0.0) + (e - s)
     idle = idle_by_span(busy, innermost_segments(spans, lo, hi), lo, hi)
-    return dict(
-        busy_s=sum(e - s for s, e in busy), window_s=hi - lo,
-        device_ops=[[n[:120], v] for n, v in sorted(
-            by_name.items(), key=lambda kv: -kv[1])[:10]],
-        idle_gaps=[[n, v] for n, v in sorted(
-            idle.items(), key=lambda kv: -kv[1])[:10]],
-        kernel_s=by_name)
+    return sum(e - s for s, e in busy), by_name, idle
+
+
+def _top(d: dict) -> list:
+    """The ten largest entries, as [name (at most 120 letters), seconds]."""
+    return [[n[:120], v] for n, v in sorted(
+        d.items(), key=lambda kv: -kv[1])[:10]]
+
+
+def summarize(ops, spans, lo: float, hi: float) -> dict:
+    """busy_s, window_s and the breakdown of the traced window."""
+    busy_s, by_name, idle = _tally(ops, spans, lo, hi)
+    return dict(busy_s=busy_s, window_s=hi - lo, device_ops=_top(by_name),
+                idle_gaps=_top(idle), kernel_s=by_name)
+
+
+def summarize_ranks(per_rank, lo: float, hi: float) -> dict:
+    """The window of N ranks, one card each, from each rank's (ops, spans):
+    busy_s the mean over the cards, so that 100 less busy over the window
+    is the mean of the cards' idle shares; device seconds by operation
+    summed over the cards; each operation and idle gap of the breakdown
+    named with its rank."""
+    busy, kernel_s, ops_named, idle_named = [], {}, {}, {}
+    for r, (ops, spans) in enumerate(per_rank):
+        b, by_name, idle = _tally(ops, spans, lo, hi)
+        busy.append(b)
+        for n, v in by_name.items():
+            kernel_s[n] = kernel_s.get(n, 0.0) + v
+            ops_named[f"rank{r}:{n}"] = v
+        for n, v in idle.items():
+            idle_named[f"rank{r}:{n}"] = v
+    return dict(busy_s=sum(busy) / len(busy), window_s=hi - lo,
+                device_ops=_top(ops_named), idle_gaps=_top(idle_named),
+                kernel_s=kernel_s, busy_s_by_card=busy)
